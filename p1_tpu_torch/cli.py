@@ -1,11 +1,13 @@
-"""Command line of the port: ``python -m p1_tpu_torch mine``.
+"""Command line of the port: ``python -m p1_tpu_torch mine|replay``.
 
-The port of ``p1_tpu/cli.py``'s ``mine`` subcommand (benchmark configs 1/2):
-mine N blocks from the genesis header and print one JSON line on stdout
-with the same keys as ``p1_tpu``'s ``cmd_mine``.  Logs go to stderr.
+The port of ``p1_tpu/cli.py``'s ``mine`` (benchmark configs 1/2) and
+``replay`` (config 3) subcommands.  Each prints one JSON line on stdout
+with the same keys as ``p1_tpu``'s; logs go to stderr.
 
-  python -m p1_tpu_torch mine --difficulty 20 --blocks 10            # on the card
-  python -m p1_tpu_torch mine --difficulty 8 --blocks 2 --device cpu  # plain version
+  python -m p1_tpu_torch mine --difficulty 20 --blocks 10              # on the card
+  python -m p1_tpu_torch mine --difficulty 8 --blocks 2 --device cpu    # plain version
+  python -m p1_tpu_torch replay --n 10000 --difficulty 16               # on the card
+  python -m p1_tpu_torch replay --n 32 --difficulty 8 --device cpu      # plain version
 
 The other subcommands arrive with later slices of the port.
 """
@@ -20,6 +22,49 @@ import sys
 import time
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--difficulty", type=int, default=16)
+    p.add_argument(
+        "--backend", default="cuda", help="hash backend registry name (cuda, cpu)"
+    )
+    p.add_argument("--batch", type=int, default=None, help="device batch override")
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="where the backend runs: cuda (default; fails without a card) "
+        "or cpu (the plain PyTorch version)",
+    )
+
+
+def _add_retarget(p: argparse.ArgumentParser) -> None:
+    """Chain-identity flags for opt-in difficulty retargeting: the rule is
+    committed into genesis, so they select the chain."""
+    p.add_argument(
+        "--retarget-window",
+        type=int,
+        default=0,
+        help="adjust difficulty every N blocks (0 = fixed difficulty; "
+        "the rule is part of the chain's genesis identity)",
+    )
+    p.add_argument(
+        "--target-spacing",
+        type=int,
+        default=0,
+        help="target seconds per block for retargeting (set together "
+        "with --retarget-window)",
+    )
+
+
+def _retarget_rule(args):
+    """The ``RetargetRule`` selected by the flags, or None (fixed)."""
+    from p1_tpu_torch.core.retarget import RetargetRule
+
+    try:
+        return RetargetRule.from_params(args.retarget_window, args.target_spacing)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="p1_tpu_torch",
@@ -29,19 +74,24 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("mine", help="mine N blocks from genesis (configs 1/2)")
-    p.add_argument("--difficulty", type=int, default=16)
-    p.add_argument(
-        "--backend", default="cuda", help="hash backend registry name (cuda, cpu)"
-    )
-    p.add_argument("--batch", type=int, default=None, help="device batch override")
+    _add_common(p)
     p.add_argument("--chunk", type=int, default=None, help="miner abort granularity")
-    p.add_argument(
-        "--device",
-        default="cuda",
-        help="where the backend runs: cuda (default; fails without a card) "
-        "or cpu (the plain PyTorch version)",
-    )
     p.add_argument("--blocks", type=int, default=10)
+
+    p = sub.add_parser("replay", help="generate+verify a header chain (config 3)")
+    _add_common(p)
+    p.add_argument("--n", type=int, default=10_000)
+    p.add_argument(
+        "--method",
+        choices=["host", "native", "device", "both", "all"],
+        default="both",
+        help="verification engine(s): host=hashlib oracle, device=one kernel "
+        "launch on --device; both=host+device (native and all wait for a "
+        "later slice of the port)",
+    )
+    p.add_argument("--out", default=None, help="write generated headers here")
+    p.add_argument("--verify", default=None, help="verify this header file instead")
+    _add_retarget(p)
     return parser
 
 
@@ -106,6 +156,91 @@ def cmd_mine(args) -> int:
     return 0
 
 
+# -- replay --------------------------------------------------------------
+
+
+def cmd_replay(args) -> int:
+    from p1_tpu_torch.chain import generate_headers, parse_headers, replay_device, replay_host
+    from p1_tpu_torch.core.genesis import genesis_hash
+    from p1_tpu_torch.core.header import HEADER_SIZE
+    from p1_tpu_torch.hashx import get_backend
+
+    if args.method in ("native", "all"):
+        print(
+            "the native (C++ SHA-NI) replay engine is not ported yet: it waits "
+            "for the slice that ports replay_native/replay_fast/replay_packed; "
+            "use --method host, device or both",
+            file=sys.stderr,
+        )
+        return 2
+    rule = _retarget_rule(args)
+    if rule is not None and args.method in ("device", "both"):
+        # The host oracle is retarget-aware; the device kernel implements
+        # the benchmark-config form (one target for the whole chain) and
+        # would mis-report an honest retargeting chain as invalid at the
+        # first adjustment.
+        print(
+            "retargeting chains verify with --method host "
+            "(the device engine is fixed-difficulty)",
+            file=sys.stderr,
+        )
+        return 2
+    if args.verify:
+        with open(args.verify, "rb") as fh:
+            raw = fh.read()
+        if len(raw) % HEADER_SIZE:
+            print(f"{args.verify}: not a multiple of {HEADER_SIZE} bytes", file=sys.stderr)
+            return 2
+        headers = parse_headers(raw)
+        # Pin the file to the chain the operator selected: header[0] is
+        # otherwise SELF-attested, and a forged file whose genesis claims
+        # difficulty 1 would "verify" with no meaningful work behind it.
+        if not headers or headers[0].block_hash() != genesis_hash(args.difficulty, rule):
+            print(
+                f"{args.verify}: does not start at this chain's genesis "
+                "(check --difficulty / retarget flags)",
+                file=sys.stderr,
+            )
+            return 2
+    else:
+        kwargs = {"batch": args.batch} if args.batch else {}
+        backend = get_backend(args.backend, device=args.device, **kwargs)
+        t0 = time.perf_counter()
+        headers = generate_headers(args.n, args.difficulty, backend=backend, retarget=rule)
+        logging.info("generated %d headers in %.1fs", args.n, time.perf_counter() - t0)
+        if args.out:
+            with open(args.out, "wb") as fh:
+                for h in headers:
+                    fh.write(h.serialize())
+
+    reports = []
+    if args.method in ("host", "both"):
+        reports.append(replay_host(headers, retarget=rule))
+    if args.method in ("device", "both"):
+        reports.append(replay_device(headers, device=args.device))
+        reports.append(replay_device(headers, device=args.device))  # warm (build amortized)
+    ok = all(r.valid for r in reports)
+    print(
+        json.dumps(
+            {
+                "config": "replay",
+                "n_headers": len(headers),
+                "valid": ok,
+                "first_invalid": next((r.first_invalid for r in reports if not r.valid), None),
+                "results": [
+                    {
+                        "method": r.method,
+                        "headers_per_sec": round(r.headers_per_sec),
+                        "elapsed_s": round(r.elapsed_s, 4),
+                    }
+                    for r in reports
+                ],
+            }
+        )
+    )
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -113,7 +248,7 @@ def main(argv=None) -> int:
         stream=sys.stderr,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    handler = {"mine": cmd_mine}[args.cmd]
+    handler = {"mine": cmd_mine, "replay": cmd_replay}[args.cmd]
     return handler(args)
 
 

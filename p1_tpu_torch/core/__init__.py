@@ -1,4 +1,4 @@
-from p1_tpu_torch.core.genesis import GENESIS_TIMESTAMP, genesis_header
+from p1_tpu_torch.core.genesis import GENESIS_TIMESTAMP, genesis_hash, genesis_header
 from p1_tpu_torch.core.header import (
     HEADER_SIZE,
     NONCE_OFFSET,
@@ -7,6 +7,7 @@ from p1_tpu_torch.core.header import (
     target_from_difficulty,
     target_to_words,
 )
+from p1_tpu_torch.core.retarget import RetargetRule
 
 __all__ = [
     "HEADER_SIZE",
@@ -17,4 +18,6 @@ __all__ = [
     "meets_target",
     "GENESIS_TIMESTAMP",
     "genesis_header",
+    "genesis_hash",
+    "RetargetRule",
 ]

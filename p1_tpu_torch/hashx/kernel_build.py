@@ -1,12 +1,16 @@
-"""Build the port's CUDA kernels (``hashx/csrc/*.cu``) on first use.
+"""Build the port's CUDA kernels (``csrc/*.cu`` of a package) on first use.
 
 The role of ``p1_tpu/hashx/native_build.py`` for the card: ``nvcc`` compiles
 each source into a shared library with a plain C interface for Hopper
 (``sm_90a``), and ``ctypes`` loads it — no PyTorch headers, so a build
-takes seconds.  The library lands in ``build/p1_tpu_torch/`` beside the
-package (``.gitignore`` lists ``build/``), named by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads.
-Concurrent builds race benignly through an atomic rename.
+takes seconds.  A source is a file name in ``hashx/csrc`` (the default
+``csrc``) or in another package's ``csrc`` directory, passed as ``csrc``.
+Every library lands in ``build/p1_tpu_torch/`` beside the package
+(``.gitignore`` lists ``build/``), named by a hash of the source, the
+headers (``*.cuh``) of its ``csrc`` and the flags, so an edited source or
+header rebuilds and an unchanged one loads; the ``-Xptxas -v`` report is
+kept beside it (``.ptxas``).  Concurrent builds race benignly through an
+atomic rename, and ``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )  # fmt: skip
+_NVCC_TIMEOUT_S = 600
 
 
 class KernelBuildError(RuntimeError):
@@ -40,7 +45,7 @@ class BuiltKernel:
     path: pathlib.Path
     lib: ctypes.CDLL
     build_s: float  # 0.0 when the library was already built
-    ptxas_log: str  # nvcc's -Xptxas -v report, "" when already built
+    ptxas_log: str  # nvcc's -Xptxas -v report of the build that made it
 
 
 def find_nvcc() -> str:
@@ -50,27 +55,60 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(source: str) -> pathlib.Path:
-    src = CSRC / source
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}_{tag}.so"
+def library_path(source: str, csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    src = csrc / source
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):  # what the sources include
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> BuiltKernel:
-    """Compile ``csrc/<source>`` (if needed) and load it."""
-    out = library_path(source)
-    build_s, log = 0.0, ""
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp.{os.getpid()}")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+def _start(source: str, csrc: pathlib.Path):
+    """Start ``nvcc`` for ``source`` unless its library exists: (library
+    path, process or None, temporary output, command, start time)."""
+    out = library_path(source, csrc)
+    if out.exists():
+        return out, None, None, None, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp.{os.getpid()}")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, proc, tmp, cmd, time.perf_counter()
+
+
+def _finish(out, proc, tmp, cmd, t0) -> BuiltKernel:
+    build_s = 0.0
+    report = out.with_suffix(".ptxas")
+    if proc is not None:
+        try:
+            stdout, stderr = proc.communicate(timeout=_NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise KernelBuildError(f"nvcc timed out ({' '.join(cmd)})") from None
         build_s = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr[-4000:]}"
-            )
-        log = proc.stdout + proc.stderr
+            raise KernelBuildError(f"nvcc failed ({' '.join(cmd)}):\n{stderr[-4000:]}")
+        report.write_text(stdout + stderr)
         os.replace(tmp, out)
+    log = report.read_text() if report.exists() else ""
     return BuiltKernel(out, ctypes.CDLL(str(out)), build_s, log)
+
+
+def build(source: str, csrc: pathlib.Path = CSRC) -> BuiltKernel:
+    """Compile ``csrc/<source>`` (if needed) and load it."""
+    return _finish(*_start(source, csrc))
+
+
+def build_all(sources: list[tuple[str, pathlib.Path]]) -> list[BuiltKernel]:
+    """Compile every ``(source, csrc)`` pair with all ``nvcc`` processes
+    started together, then load each library; in the order given."""
+    started = [_start(source, csrc) for source, csrc in sources]
+    try:
+        return [_finish(*s) for s in started]
+    finally:
+        for s in started:  # a failed build stops the rest with it
+            if s[1] is not None and s[1].poll() is None:
+                s[1].kill()
+                s[1].communicate()

@@ -1,9 +1,11 @@
-"""SHA-256d nonce search as plain PyTorch integer math.
+"""SHA-256d nonce search and header-chain verification as plain PyTorch
+integer math.
 
-The port of the search half of ``p1_tpu/hashx/jax_sha256.py`` and the
-plain version of the CUDA kernel in ``csrc/sha256d_search.cu``: the CPU
-tests run it, the ``cuda`` backend takes it for tensors that lie on the
-CPU, and ``chip_smoke.py`` holds the kernel against it on the card.
+The port of ``p1_tpu/hashx/jax_sha256.py`` and the plain version of two
+CUDA kernels: ``csrc/sha256d_search.cu`` (``search_step``) and
+``csrc/verify_chain.cu`` (``verify_header_chain_segments``).  The CPU
+tests run it, the wrappers take it for tensors that lie on the CPU, and
+``chip_smoke.py`` holds each kernel against it on the card.
 
 PyTorch's ``uint32`` has no ``>>``, ``<<``, ``+``, ``~``, ``<`` or ``min``,
 so every 32-bit word rides in an ``int64`` lane holding a value in
@@ -109,3 +111,58 @@ def search_step(
     nonces = (lanes + nonce_base) & MASK32
     hits = below_target(sha256d_words(midstate, tail, nonces), target_words)
     return first_hit_index(hits, batch)
+
+
+def sha256d_headers(header_words: torch.Tensor) -> list[torch.Tensor]:
+    """SHA-256d digests for a batch of full 80-byte headers.
+
+    ``header_words`` is (N, 20) int64 holding the big-endian uint32 words;
+    returns 8 (N,) int64 digest-word lanes.  Every header differs in all 20
+    words, so all 3 compressions run: chunk 1 (words 0..15), chunk 2 (words
+    16..19 + padding, bitlen 640), then the second pass over the digest.
+    """
+    state1 = _compress(IV, tuple(header_words[:, i] for i in range(16)))
+    w2 = tuple(header_words[:, i] for i in range(16, 20))
+    state2 = _compress(state1, w2 + (0x80000000,) + (0,) * 10 + (640,))
+    return list(_compress(IV, state2 + (0x80000000,) + (0,) * 6 + (256,)))
+
+
+def _verify_segment(
+    header_words: torch.Tensor,
+    target_words: torch.Tensor,
+    prev_digest: torch.Tensor,
+    genesis_first: bool,
+    difficulty: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(first-invalid index or N, last header's digest words (8,))."""
+    digests = sha256d_headers(header_words)
+    n = header_words.shape[0]
+    pow_ok = below_target(digests, target_words)
+    if genesis_first:  # header 0 anchors by identity: PoW waived
+        pow_ok[0] = True
+    # The declared difficulty (word 18) is consensus data: a header claiming
+    # another difficulty fails even if its hash meets the real target.
+    pow_ok = pow_ok & (header_words[:, 18] == difficulty)
+    link_ok = torch.ones((n,), dtype=torch.bool, device=header_words.device)
+    for w in range(8):
+        actual = torch.cat([prev_digest[w].reshape(1), digests[w][:-1]])
+        link_ok = link_ok & (header_words[:, 1 + w] == actual)
+    lanes = torch.arange(n, dtype=torch.int64, device=header_words.device)
+    first_bad = torch.where(pow_ok & link_ok, n, lanes).min()
+    return first_bad, torch.stack([d[-1] for d in digests])
+
+
+def verify_header_chain_segments(
+    words3: torch.Tensor, target_words: torch.Tensor, difficulty: int
+) -> torch.Tensor:
+    """Whole-chain verification over (S, segment, 20) int64 header words,
+    the cross-segment digest carried from one segment to the next: (S,)
+    int64 local first-invalid indices (``segment`` where the segment is
+    clean).  Header 0 of segment 0 is treated as genesis (PoW waived, zero
+    prev-hash enforced)."""
+    prev = torch.zeros((8,), dtype=torch.int64, device=words3.device)
+    idxs = []
+    for k in range(words3.shape[0]):
+        idx, prev = _verify_segment(words3[k], target_words, prev, k == 0, difficulty)
+        idxs.append(idx)
+    return torch.stack(idxs) if idxs else torch.zeros((0,), dtype=torch.int64)

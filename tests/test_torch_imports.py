@@ -30,13 +30,31 @@ def _modules() -> list[str]:
     return mods
 
 
+#: Modules of the port's slices so far; each must be among those checked.
+PORT_MODULES = (
+    "p1_tpu_torch.hashx.cuda_backend",
+    "p1_tpu_torch.hashx.cuda_verify",
+    "p1_tpu_torch.hashx.sass",
+    "p1_tpu_torch.benchmarks.vpu_roofline",
+    "p1_tpu_torch.chain.replay",
+    "p1_tpu_torch.core.retarget",
+)
+
+
 def test_every_module_imports_without_jax_or_p1_tpu():
     mods = _modules()
-    assert "p1_tpu_torch.hashx.cuda_backend" in mods
+    assert set(PORT_MODULES) <= set(mods)
+    # Importing a kernel's module builds nothing and touches no GPU-only
+    # package: the kernels are built and loaded at their first launch.
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'p1_tpu'))\n"
+        "bad += sorted(m for m in sys.modules if m.split('.')[0] == 'triton')\n"
+        "from p1_tpu_torch.hashx import cuda_backend, cuda_verify\n"
+        "from p1_tpu_torch.benchmarks import vpu_roofline\n"
+        "wrappers = (cuda_backend.sha256d_search, cuda_verify.verify_chain, vpu_roofline.int_roofline)\n"
+        "bad += [type(w).__name__ for w in wrappers if w._built is not None or w.launches]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
