@@ -30,13 +30,18 @@ each, and fails (non-zero exit, no last line) if any phase fails:
    integer-ALU instructions per clock per SM at the SM clock the kernel
    sampled; every shape it launched against ``bench_step`` on the same
    seeds; kernel 1's bound restated at the measured rate and clock;
-6. replay — ``verify_chain.cu`` against the plain
-   ``verify_header_chain_segments`` on the card on seeded fixtures; the
-   ``replay`` command at --n 10000 --difficulty 16 (mined through the search
-   kernel, verified by ``replay_host`` and ``replay_device``: the path whose
-   launches are counted); corruptions that both must flag at the same
-   index; the kernel against the plain version on the 10,000-header chain,
-   and its time at 10,000 and 2**20 headers.
+6. replay — ``verify_chain.cu`` (one thread per header) against the plain
+   ``verify_header_chain_segments`` on the card on seeded fixtures, block
+   and chain ends among them; the ``replay`` command at --n 10000
+   --difficulty 16 (mined through the search kernel, verified by
+   ``replay_host`` and ``replay_device``: the path whose launches are
+   counted); corruptions that both must flag at the same index; the kernel
+   against the plain version on the 10,000-header chain; its device time
+   at 10,000 and 2**20 headers from a CUDA graph of 50 launches
+   (``benchmarks/verify_time.py``), the profiler's kernel time, and the
+   host loop's time (``ms_enqueue``).  verify_chain's bound counts a
+   pinned work per header (``VERIFY_ALU_PER_HEADER``), or the kernel's own
+   where that is less.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -260,19 +265,24 @@ def phase_roofline(vr, sass, sms: int, white_paper: Rate) -> tuple[dict, Rate, R
     }, measured, peak  # fmt: skip
 
 
-def d0_chain_words(n: int):
-    """(n, 20) uint32 words of a linked difficulty-0 chain (every hash meets
-    the all-ones target), built on the host with hashlib."""
-    from p1_tpu_torch.chain import headers_to_words
-    from p1_tpu_torch.core import BlockHeader, genesis_header
+def profiler_ms(fn, kernel: str, reps: int = 50) -> float | None:
+    """Mean device milliseconds per launch of the CUDA kernel whose name
+    contains ``kernel`` over ``reps`` eager calls of ``fn``, from
+    ``torch.profiler``; None where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    rng = random.Random(n)
-    headers = [genesis_header(0)]
-    for _ in range(n - 1):
-        parent = headers[-1]
-        headers.append(BlockHeader(1, parent.block_hash(), rng.randbytes(32),
-                                   parent.timestamp + 1, 0, rng.getrandbits(32)))  # fmt: skip
-    return headers_to_words(headers)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for event in prof.key_averages():
+        device_us = getattr(event, "device_time_total", None) or getattr(event, "cuda_time_total", 0)
+        if kernel in event.key and device_us and event.count == reps:
+            return device_us / reps / 1e3
+    return None
 
 
 def verify_both(cuda_verify, words, segment: int, difficulty: int) -> int:
@@ -290,24 +300,35 @@ def verify_both(cuda_verify, words, segment: int, difficulty: int) -> int:
     target = target_to_words(target_from_difficulty(difficulty))
     words3 = pad_to_segments(words, segment)
     padded = cuda_verify.first_invalid(torch.from_numpy(words3.view(np.int32)).cuda(), target, difficulty)
-    flat = cuda_verify.first_invalid(torch.from_numpy(words.view(np.int32)).cuda(), target, difficulty)
     want = cuda_verify.plain_first_invalid(
         torch.from_numpy(words3.astype(np.int64)).cuda(), target, difficulty
     )
+    flat = cuda_verify.first_invalid(torch.from_numpy(words.view(np.int32)).cuda(), target, difficulty)
     if padded != want or flat != min(want, len(words)):
         raise AssertionError(f"verify_chain padded {padded}, unpadded {flat}; plain {want}")
     return want
 
 
+#: verify_chain's work per header, pinned at the kernel with fully unrolled
+#: compressions that came before the rolled one (its static SASS is one
+#: header's): 4,165 instructions, 3,714 on the integer-ALU pipe, counted on
+#: an H100 (PERF.md).  The bound counts the three compressions, not a
+#: design's loop overhead or handoffs; a design that needs fewer
+#: instructions per header lowers it.
+VERIFY_INSNS_PER_HEADER = 4165
+VERIFY_ALU_PER_HEADER = 3714
+
+
 def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> tuple[dict, int]:
-    """Phase 6: the verify kernel against its plain version, the ``replay``
-    command at BASELINE config 3, corruptions, timings.  Returns the
-    kernel's entry of the ``kernels`` line and the search kernel's launches
-    in the replay run."""
+    """Phase 6: the verify kernel against the plain version, the
+    ``replay`` command at BASELINE config 3, corruptions, timings.  Returns
+    the kernel's entry of the ``kernels`` line and the search kernel's
+    launches in the replay run."""
     import numpy as np
     import torch
 
     from p1_tpu_torch import cli
+    from p1_tpu_torch.benchmarks.verify_time import d0_chain_words, time_launch
     from p1_tpu_torch.chain import (
         generate_headers,
         headers_to_words,
@@ -320,11 +341,12 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
     from p1_tpu_torch.hashx import cuda_backend, get_backend
     from p1_tpu_torch.miner import Miner
 
-    # Kernel vs plain version on seeded fixtures.
+    # The kernel vs the plain version on seeded fixtures.
     rng = np.random.default_rng(6)
     fixtures = []  # (name, words, segment, difficulty, expected or None)
-    d0 = d0_chain_words(3000)
-    fixtures.append(("d0 clean", d0, 1024, 0, 3000))
+    d0 = d0_chain_words(REPLAY_N)
+    d3k = d0[:3000]
+    fixtures.append(("d0 clean", d3k, 1024, 0, 3000))
     for name, (i, word, xor) in {
         "d0 nonce flip": (int(rng.integers(1, 2999)), 19, 1),  # breaks the next link
         "d0 difficulty word": (int(rng.integers(1, 3000)), 18, 1),
@@ -332,10 +354,26 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
         "d0 genesis prev-hash": (0, 3, 5),
         "d0 last nonce": (2999, 19, 1),  # no next header: still valid
     }.items():
-        w = d0.copy()
+        w = d3k.copy()
         w[i, word] ^= xor
         expect = {"d0 nonce flip": i + 1, "d0 last nonce": 3000}.get(name, i)
         fixtures.append((name, w, 1024, 0, expect))
+    # Where a warp (32 headers) or a block (64) ends: the link to the next
+    # one's first header.
+    for i in (31, 32, 63, 64, 127, 128):
+        w = d3k.copy()
+        w[i, 19] ^= 1
+        fixtures.append((f"d0 nonce flip {i}", w, 1024, 0, i + 1))
+    for i in (32, 64):
+        w = d3k.copy()
+        w[i, 8] ^= 1
+        fixtures.append((f"d0 prev-hash word {i}", w, 1024, 0, i))
+    for n in (1, 31, 32, 33, REPLAY_N):
+        fixtures.append((f"d0 chain of {n}", d0[:n], 1024, 0, n))
+        if n > 1:  # the chain's last link
+            w = d0[:n].copy()
+            w[n - 2, 19] ^= 1
+            fixtures.append((f"d0 chain of {n}, last link", w, 1024, 0, n - 1))
     mined = headers_to_words(generate_headers(256, 8, backend=get_backend("cuda")))
     for segment in (64, 100):
         fixtures.append((f"d8 clean /{segment}", mined, segment, 8, 256))
@@ -356,12 +394,15 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
         results[name] = got
     torch.cuda.synchronize()
     vk = cuda_verify.verify_chain
-    regs, local_bytes = vk.attributes()
-    v_total, v_alu = sass.sass_counts(vk.built().path, "verify_chain_kernel")
+    text = sass.disassemble(vk.built().path)
+    # Rounds 16..63 of each compression run as 3 passes of 16: every loop
+    # of the kernel runs 3 times per header.
+    own = sass.per_item_counts(sass.function_insns(text, "verify_chain_kernel"), 3)
     emit({"phase": "verify_vs_plain", "cases": len(fixtures), "max_abs_err": 0,
-          "first_invalid": results, "registers": regs, "local_bytes": local_bytes,
+          "first_invalid": results, "registers_local_bytes": vk.attributes(),
           "ptxas": ptxas_lines(vk.built().ptxas_log, "verify_chain_kernel"),
-          "sass_instructions": v_total, "sass_alu_instructions": v_alu})  # fmt: skip
+          "per_header_insns_alu": own,
+          "pinned_per_header_insns_alu": [VERIFY_INSNS_PER_HEADER, VERIFY_ALU_PER_HEADER]})  # fmt: skip
 
     # The main path: ``replay`` at BASELINE config 3, launches counted.
     search = cuda_backend.sha256d_search
@@ -382,7 +423,8 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
     if search_launches <= 0 or verify_launches <= 0:
         raise AssertionError(f"replay launched search {search_launches}, verify {verify_launches} times")
     emit({"phase": "replay", **line, "exit": rc, "wall_s": cli_s,
-          "launches": {"sha256d_search": search_launches, "verify_chain": verify_launches}})  # fmt: skip
+          "launches": {"sha256d_search": search_launches, "verify_chain": verify_launches},
+          "verify_grid": [cuda_verify.blocks_for(REPLAY_N), cuda_verify.THREADS]})  # fmt: skip
 
     # Corruptions of header i: host oracle and device kernel must name i.
     miner = Miner(backend=get_backend("cuda"))
@@ -423,24 +465,40 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
     if got != REPLAY_N or any(p != REPLAY_N for p in plain):
         raise AssertionError(f"10k chain: kernel {got}, plain {plain}, expected {REPLAY_N}")
 
-    # Timings: the kernel at 10,000 and 2**20 headers (a tiled chain: every
-    # header is hashed whatever the result).
+    # Timings at 10,000 and 2**20 headers (a tiled chain: every header is
+    # hashed whatever the result): device time from a CUDA graph of 50
+    # launches, the profiler's kernel time, and the host loop of 50 calls
+    # through the wrapper (``ms_enqueue``), which at 10,000 times the
+    # host's enqueue.
+    mhz = peak.mhz
+    insns = min(VERIFY_INSNS_PER_HEADER, own[0])
+    alu = min(VERIFY_ALU_PER_HEADER, own[1])
     timing = {}
     for label, n in (("10k", REPLAY_N), ("2p20", 1 << 20)):
         w = torch.from_numpy(np.resize(words, (n, 20)).view(np.int32)).cuda()
         cell = torch.full((1,), n, dtype=torch.int32, device="cuda")
-        ms = cuda_ms(lambda: vk(w, target, REPLAY_DIFFICULTY, cell), reps=50)
+        row = {"n": n, "blocks": cuda_verify.blocks_for(n), "threads": cuda_verify.THREADS,
+               **time_launch(lambda w=w, cell=cell: vk(w, target, REPLAY_DIFFICULTY, cell))}  # fmt: skip
+        row["ms_profiler"] = profiler_ms(
+            lambda w=w, cell=cell: vk(w, target, REPLAY_DIFFICULTY, cell), "verify_chain_kernel"
+        )
         bytes_ms = 1e3 * 80 * n / HBM_BYTES_PER_S
-        ops_ms = peak.bound_ms(n * v_alu, n * v_total, sms)
-        timing[label] = {"n": n, "ms": ms, "headers_per_s": n / ms * 1e3,
-                         "bound_ms": max(ops_ms, bytes_ms), "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
-                         "ops_bound_ms_white_paper": white_paper.bound_ms(n * v_alu, n * v_total, sms)}  # fmt: skip
+        ops_ms = peak.bound_ms(n * alu, n * insns, sms)
+        row.update({
+            "headers_per_s": n / row["ms"] * 1e3,
+            "bound_ms": max(ops_ms, bytes_ms), "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms_white_paper": white_paper.bound_ms(n * alu, n * insns, sms),
+            # One warp's issue floor: a thread's ALU instructions, one
+            # every second clock, on the warp's one scheduler.
+            "issue_floor_ms": 2 * own[1] / (mhz * 1e3),
+        })  # fmt: skip
+        timing[label] = row
     tiled = parse_headers(np.resize(words, (1 << 20, 20)).astype(">u4").tobytes())
     e2e_2p20 = [replay_device(tiled) for _ in range(3)]
-    emit({"phase": "replay_timing", "kernel": timing, "plain_ms_10k": plain_ms,
+    emit({"phase": "replay_timing", "kernel": timing, "plain_ms_10k": plain_ms, "sm_mhz": mhz,
           "replay_device_2p20_s": [r.elapsed_s for r in e2e_2p20],
           "replay_device_2p20_headers_per_s": [r.headers_per_sec for r in e2e_2p20]})  # fmt: skip
-    t10k = timing["10k"]
+    t10k, t2p20 = timing["10k"], timing["2p20"]
     return {
         "name": "verify_chain", "route": "cuda",
         "source": "p1_tpu_torch/hashx/csrc/verify_chain.cu",
@@ -449,8 +507,10 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
         "ms": t10k["ms"], "plain_ms": plain_ms, "bound_ms": t10k["bound_ms"],
         "bound_by": "operations" if t10k["ops_bound_ms"] >= t10k["bytes_bound_ms"] else "bytes",
         "library_ms": None,
+        "ms_enqueue": t10k["ms_enqueue"], "ms_profiler": t10k["ms_profiler"],
+        "issue_floor_ms": t10k["issue_floor_ms"],
         "bound_ms_white_paper": max(t10k["ops_bound_ms_white_paper"], t10k["bytes_bound_ms"]),
-        "ms_2p20": timing["2p20"]["ms"], "bound_ms_2p20": timing["2p20"]["bound_ms"],
+        "ms_2p20": t2p20["ms"], "bound_ms_2p20": t2p20["bound_ms"],
     }, search_launches  # fmt: skip
 
 

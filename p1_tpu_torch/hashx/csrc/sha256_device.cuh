@@ -1,10 +1,12 @@
 // SHA-256 compression on the card, shared by the port's hash kernels
-// (sha256d_search.cu, verify_chain.cu).  FIPS 180-4; all word arithmetic
-// is mod 2**32.  The 64 rounds unroll fully with K in constant memory and
+// (sha256d_search.cu: `compress`; verify_chain.cu: `compress_rolled`).
+// FIPS 180-4; all word arithmetic is mod 2**32.  In `compress` the 64
+// rounds unroll fully with K in constant memory and
 // the 16-word window and 8-word state in registers: straight-line
 // integer-ALU work (SHF for each rotation, LOP3 for the three-input XORs
 // and Ch/Maj, IADD3 for the sums).  kernel_build hashes this header with
-// each source, so an edit rebuilds both.
+// each source, so an edit rebuilds both; a function that a source does not
+// call emits no code into it.
 
 #pragma once
 
@@ -61,6 +63,45 @@ __device__ __forceinline__ void compress(uint32_t s[8], uint32_t w[16]) {
     c = b;
     b = a;
     a = t1 + s0 + maj;
+  }
+  s[0] += a; s[1] += b; s[2] += c; s[3] += d;
+  s[4] += e; s[5] += f; s[6] += g; s[7] += h;
+}
+
+// `compress` with rounds 16..63 in a loop of three 16-round passes: about
+// half the code.  Where a launch puts one warp on each of many SMs, every
+// SM fetches the kernel's code anew, and the fully unrolled form's fetch
+// shows in the time (verify_chain.cu; PERF.md).
+__device__ __forceinline__ void compress_rolled(uint32_t s[8], uint32_t w[16]) {
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
+  uint32_t e = s[4], f = s[5], g = s[6], h = s[7];
+  auto round = [&](const uint32_t k, const uint32_t wi) {
+    const uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t t1 = h + s1 + ch + k + wi;
+    const uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+    h = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + s0 + maj;
+  };
+#pragma unroll
+  for (int i = 0; i < 16; ++i) round(kK[i], w[i]);
+#pragma unroll 1
+  for (int r = 16; r < 64; r += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t w1 = w[(j + 1) & 15], w14 = w[(j + 14) & 15];
+      const uint32_t sig0 = rotr(w1, 7) ^ rotr(w1, 18) ^ (w1 >> 3);
+      const uint32_t sig1 = rotr(w14, 17) ^ rotr(w14, 19) ^ (w14 >> 10);
+      w[j] += sig0 + w[(j + 9) & 15] + sig1;
+      round(kK[r + j], w[j]);
+    }
   }
   s[0] += a; s[1] += b; s[2] += c; s[3] += d;
   s[4] += e; s[5] += f; s[6] += g; s[7] += h;

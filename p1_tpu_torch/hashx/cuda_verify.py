@@ -21,8 +21,19 @@ import torch
 from p1_tpu_torch.hashx import kernel_build
 from p1_tpu_torch.hashx.torch_sha256 import verify_header_chain_segments
 
-#: Threads per block: one header each.
-THREADS = 128
+#: Threads per block, one header each: two warps, so that the ``replay``
+#: launch (10,000 headers: 157 blocks) reaches every SM of an H100 (132).
+THREADS = 64
+
+
+def blocks_for(n: int) -> int:
+    """Blocks of ``THREADS`` that cover ``n`` headers once: header i is
+    thread ``i % THREADS`` of block ``i // THREADS``."""
+    if not 0 < n < 1 << 31:
+        # The first-invalid min runs in int32 (atomicMin on a signed cell
+        # whose miss value is N).
+        raise ValueError(f"the kernel takes 0 < N < 2**31 headers, got {n}")
+    return -(-n // THREADS)
 
 
 class VerifyKernel:
@@ -42,6 +53,7 @@ class VerifyKernel:
                 ctypes.c_void_p,  # words: device (n, 20) uint32
                 ctypes.c_int,  # n
                 ctypes.POINTER(ctypes.c_uint32),  # target (8) + difficulty
+                ctypes.c_int,  # blocks
                 ctypes.c_int,  # threads per block
                 ctypes.c_void_p,  # out (device int32 cell)
                 ctypes.c_void_p,  # stream
@@ -71,10 +83,7 @@ class VerifyKernel:
         contiguous (N, 20) int32 CUDA tensor of the big-endian header words;
         ``out`` is a (1,) int32 CUDA cell that already holds N."""
         n = words.shape[0]
-        if not 0 < n < 1 << 31:
-            # The first-invalid min runs in int32 (atomicMin on a signed
-            # cell whose miss value is N).
-            raise ValueError(f"the kernel takes 0 < N < 2**31 headers, got {n}")
+        blocks = blocks_for(n)
         if not (words.is_cuda and words.dtype == torch.int32 and words.dim() == 2
                 and words.shape[1] == 20 and words.is_contiguous()
                 and words.data_ptr() % 16 == 0):  # fmt: skip
@@ -89,6 +98,7 @@ class VerifyKernel:
                 words.data_ptr(),
                 n,
                 (ctypes.c_uint32 * 9)(*target_words, difficulty),
+                blocks,
                 THREADS,
                 out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream,

@@ -91,19 +91,35 @@ def sass_counts(lib_path: pathlib.Path, kernel: str) -> tuple[int, int]:
     return counts(function_insns(disassemble(lib_path), kernel))
 
 
-def loop_body(insns: list[Insn]) -> list[Insn]:
-    """The instructions of the function's one loop: from the target of its
-    one backward branch through that branch.  (The ``BRA`` to itself that
-    ends every function after its ``EXIT`` is no loop.)"""
+def loop_bodies(insns: list[Insn]) -> list[list[Insn]]:
+    """The instructions of each loop of the function: from the target of a
+    backward branch through that branch.  (The ``BRA`` to itself that ends
+    every function after its ``EXIT`` is no loop.)"""
     loops = []
     for insn in insns:
         m = re.match(r"(?:`\()?(0x[0-9a-f]+)", insn.operands)
         if insn.opcode.startswith("BRA") and m and int(m.group(1), 16) < insn.address:
             loops.append((int(m.group(1), 16), insn.address))
-    if len(loops) != 1:
-        raise RuntimeError(f"expected one backward branch, found {len(loops)}: {loops}")
-    start, end = loops[0]
-    return [i for i in insns if start <= i.address <= end]
+    return [[i for i in insns if start <= i.address <= end] for start, end in loops]
+
+
+def loop_body(insns: list[Insn]) -> list[Insn]:
+    """The instructions of the function's one loop."""
+    bodies = loop_bodies(insns)
+    if len(bodies) != 1:
+        raise RuntimeError(f"expected one backward branch, found {len(bodies)}")
+    return bodies[0]
+
+
+def per_item_counts(insns: list[Insn], trips: int) -> tuple[int, int]:
+    """(all, integer-ALU) instructions one thread executes in a function
+    whose loops (none nested) each run ``trips`` times, e.g. a compression
+    with rounds 16..63 in three passes of 16."""
+    total, alu = counts(insns)
+    for body in loop_bodies(insns):
+        more = counts(body)
+        total, alu = total + (trips - 1) * more[0], alu + (trips - 1) * more[1]
+    return total, alu
 
 
 def opcode_histogram(insns: list[Insn]) -> dict[str, int]:
