@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``mine``, on the GPU in phases, one JSON line
-each, and fails (non-zero exit, no last line) if any phase fails:
+Drives the port's paths, ``mine``, ``replay`` and signature validation
+(``check_block`` under the ``device`` rung), on the GPU in phases, one JSON
+line each, and fails (non-zero exit, no last line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
    ``p1_tpu_torch/hashx/csrc/sha256d_search.cu`` with ``nvcc`` for
@@ -41,15 +42,38 @@ each, and fails (non-zero exit, no last line) if any phase fails:
    (``benchmarks/verify_time.py``), the profiler's kernel time, and the
    host loop's time (``ms_enqueue``).  verify_chain's bound counts a
    pinned work per header (``VERIFY_ALU_PER_HEADER``), or the kernel's own
-   where that is less.
+   where that is less, and ed25519_msm's a pinned work per (point, role)
+   thread (``GATE_ALU_PER_THREAD``, ``GATE_FMA_PER_THREAD``) likewise;
+7. ed25519_kernel_vs_plain — ``ed25519_msm.cu`` (gate and scalar
+   multiplication, then the sum) against the plain ``plain_gate_msm`` on
+   the card: random subgroup points, the identity, points of order 2, 4
+   and 8 and points with a torsion component, each times scalars 0, 1,
+   q − 1, a 128-bit and a 253-bit one; the canonical encodings of every
+   sᵢ·Pᵢ, of the sum and the gate flags must be equal (and equal the
+   big-integer oracle), then the same at the 1,024-signature batch;
+8. sig_verify — ``verify_batch_device`` at 1,024 signed triples of the
+   bench's eight keys: valid, one bad signature at 0 / 511 / 1023, a
+   torsion-cancelling and a torsion-rejecting triple, each verdict equal
+   to ``_ed25519.verify_batch``'s; a malformed batch returns False with
+   no launch; µs per signature and its host/copy/kernel/read-back/close
+   split at 64, 256, 1,024 and 4,096; the kernels' device time at 1,024
+   from a CUDA graph of 50 launches, the plain version's the median of 3
+   calls after a warm one;
+9. check_block — the main path whose launches are counted: on the
+   default signature rung (``device``, on the card), ``check_block`` on a
+   block of a coinbase and 999 signed transfers (one launch, 999 device
+   signatures)
+   and ``preverify_signatures`` on a 4,096-signature window (four
+   launches); the block with one bad signature raises ``ValidationError
+   ("bad transaction signature")``.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
 measured, at the larger of ``clocks.max.sm`` and the SM clock phase 5
 measured; the white paper's bound rides beside it.  Then the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without
-a CUDA device it exits 2.  The three kernels are built at the start, one
-``nvcc`` each, all at once.
+a CUDA device it exits 2.  The four kernel sources are built at the start,
+one ``nvcc`` each, all at once.
 """
 
 from __future__ import annotations
@@ -60,6 +84,7 @@ import io
 import json
 import pathlib
 import random
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -71,6 +96,32 @@ NO_HIT = 64  # difficulty at which a step's whole batch is hashed
 PLAIN_CHUNK = 1 << 22  # lanes per plain-version call (int64 lanes: ~GBs live)
 REPLAY_N = 10_000  # BASELINE config 3
 REPLAY_DIFFICULTY = 16
+SIG_BATCH = 1024  # keys.BATCH_CHUNK: one device launch
+BLOCK_TXS = 1000  # config.max_block_txs: a coinbase and 999 transfers
+PREVERIFY_N = 4096  # chain/validate.py PREVERIFY_WINDOW
+SIG_DIFFICULTY = 8  # the check_block fixture chain
+#: Trips of gate_smul_kernel's loops in address order: the window table
+#: (14 additions), the windows (64), the doublings of a window (4).
+GATE_LOOP_TRIPS = [14, 64, 4]
+#: ed25519_msm's work per (point, role) thread, pinned from the operation
+#: count rather than the kernel's SASS: 14 + 64 point additions (9 field
+#: products and 9 field additions or subtractions each) and 256 doublings
+#: (4 squares, 4 products, 6 additions or subtractions), in ten limbs.  A
+#: product costs 100 limb products (IMAD.WIDE, FMA pipe, each accumulating
+#: into its 64-bit column) and 5 doublings of odd limbs (ALU); a square 55
+#: limb products and 10 doublings.  Either one's reduction: 9 wrapped
+#: columns folded by 19 (a 64-bit multiply-add, 2 FMA each), a carry pass
+#: on 64-bit limbs (8 ALU a limb: rounding add, shift, subtract, carry add,
+#: each on two words) and one on 32-bit limbs (4 ALU a limb), each pass's
+#: top carry folded by 19 (1 FMA): 120 ALU and 20 FMA.  An addition or
+#: subtraction is 10 ALU.  So a product is 125 ALU + 120 FMA, a square 130
+#: + 75, a point addition 1,215 + 1,080, a doubling 1,080 + 780, and a
+#: thread 78 · 1,215 + 256 · 1,080 = 371,250 ALU and 78 · 1,080 + 256 · 780
+#: = 283,920 FMA instructions.  The bound takes these, or the kernel's own
+#: count where that is less, so a rewrite that adds instructions cannot
+#: loosen it.
+GATE_ALU_PER_THREAD = 371_250
+GATE_FMA_PER_THREAD = 283_920
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 T0 = time.perf_counter()
 
@@ -123,6 +174,13 @@ def plain_first_hit(arrays, base: int, batch: int) -> int:
     return batch
 
 
+def calls_ms(fn, reps: int = 3) -> list[float]:
+    """Milliseconds of each of ``reps`` calls of ``fn()`` on the card
+    (events), after one untimed call."""
+    fn()
+    return [cuda_ms(fn, reps=1, warm=False) for _ in range(reps)]
+
+
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds of ``fn()`` on the card over ``reps`` runs (events),
     after one untimed run unless ``warm`` is false."""
@@ -149,11 +207,16 @@ class Rate:
     issue_per_clk: float
     mhz: float
 
-    def bound_ms(self, alu: float, insns: float, sms: int) -> float:
-        """Least milliseconds for ``alu`` integer-ALU and ``insns``
-        instructions in all (thread-instructions) on ``sms`` SMs."""
+    def bound_ms(self, alu: float, insns: float, sms: int, fma: float = 0.0) -> float:
+        """Least milliseconds for ``alu`` integer-ALU, ``fma`` FMA-pipe
+        (``sass.FMA_PER_SM_CLK`` a clock) and ``insns`` instructions in all
+        (thread-instructions) on ``sms`` SMs."""
+        from p1_tpu_torch.hashx.sass import FMA_PER_SM_CLK
+
         hz = self.mhz * 1e6 * sms
-        return 1e3 * max(alu / (self.alu_per_clk * hz), insns / (self.issue_per_clk * hz))
+        return 1e3 * max(
+            alu / (self.alu_per_clk * hz), fma / (FMA_PER_SM_CLK * hz), insns / (self.issue_per_clk * hz)
+        )
 
 
 def ptxas_lines(log: str, function: str) -> list[str]:
@@ -514,6 +577,227 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
     }, search_launches  # fmt: skip
 
 
+def compressed(m, e, limbs) -> "np.ndarray":
+    """The canonical 32-byte encodings of (N, 4, 10) limbs, (N, 32) uint8."""
+    import numpy as np
+
+    rows = limbs.cpu().numpy().reshape(-1, 4 * m.FE_LIMBS)
+    raw = b"".join(e._pt_compress(m.decode_point(r)) for r in rows)
+    return np.frombuffer(raw, dtype=np.uint8).reshape(-1, 32).astype(np.int64)
+
+
+def gate_msm_vs_plain(ce, m, e, points, scalars) -> tuple[int, bool, object]:
+    """The kernel against the plain version on the same card tensors: the
+    largest byte difference between the canonical encodings of every
+    sᵢ·Pᵢ and of the sum, and between the gate flags; whether every
+    product's limbs are equal too; the kernel's output."""
+    import torch
+
+    got = ce.gate_msm(points, scalars)
+    want = ce.plain_gate_msm(points, scalars)
+    torch.cuda.synchronize()
+    err = max(
+        int((got.flags - want.flags).abs().max()),
+        int(abs(int(got.result[0]) - int(want.result[0]))),
+        int(abs(compressed(m, e, got.products) - compressed(m, e, want.products)).max()),
+        int(abs(compressed(m, e, got.result[1:]) - compressed(m, e, want.result[1:])).max()),
+    )
+    # The two sum the products in different orders (other representatives
+    # of the same point); each product is computed in the same order.
+    return err, torch.equal(got.products, want.products), got
+
+
+def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
+    """Phases 7-9: the Ed25519 kernels against the plain version on
+    small-order and random fixtures and at the 1,024-signature shape;
+    ``verify_batch_device`` verdicts and timings; the main path,
+    ``check_block`` on a full block and ``preverify_signatures`` on a
+    4,096-signature window under the ``device`` rung.  Returns the
+    kernel's entry of the ``kernels`` line."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from p1_tpu_torch.benchmarks import sig_verify as sv
+    from p1_tpu_torch.benchmarks.verify_time import graph_ms
+    from p1_tpu_torch.chain import ValidationError, check_block, preverify_signatures
+    from p1_tpu_torch.core import Block, BlockHeader, Transaction, genesis_hash, make_genesis, merkle_root
+    from p1_tpu_torch.core import _ed25519 as e
+    from p1_tpu_torch.core import keys
+    from p1_tpu_torch.core.sigcache import SignatureCache
+    from p1_tpu_torch.hashx import cuda_ed25519 as ce
+    from p1_tpu_torch.hashx import ed25519_msm as m
+    from p1_tpu_torch.hashx import get_backend
+    from p1_tpu_torch.miner import Miner
+
+    kernel = ce.ed25519_msm
+    t0 = time.perf_counter()
+    # 4,096 transfers from the bench's eight keys, signed in worker processes.
+    tag = genesis_hash(SIG_DIFFICULTY)
+    pubs = [e.public_key(seed) for seed in sv.SEEDS]
+    unsigned = [Transaction(keys.account_id(pubs[i % 8]), f"smoke-r{i % 13}", 1 + i % 7, 1, i // 8, chain=tag)
+                for i in range(PREVERIFY_N)]  # fmt: skip
+    sigs = sv.sign_many((sv.SEEDS[i % 8], tx.signing_bytes()) for i, tx in enumerate(unsigned))
+    txs = [dataclasses.replace(tx, pubkey=pubs[i % 8], sig=sig) for i, (tx, sig) in enumerate(zip(unsigned, sigs))]
+    triples = [(tx.pubkey, tx.sig, tx.signing_bytes()) for tx in txs]
+    fixtures_s = time.perf_counter() - t0
+
+    # -- 7. the kernels vs the plain version --------------------------------
+    rng = random.Random(25519)
+    t2, t4, t8 = (e._pt_decompress(enc) for enc in (sv.T2_ENC, sv.T4_ENC, sv.T8_ENC))
+    subgroup = [e._pt_mul(rng.randrange(1, e._Q), e._B) for _ in range(6)]
+    named = {**{f"random {i}": p for i, p in enumerate(subgroup)}, "identity": e._IDENT,
+             "order 2": t2, "order 4": t4, "order 8": t8,
+             "random + order 8": e._pt_add(subgroup[0], t8), "random + order 4": e._pt_add(subgroup[1], t4)}  # fmt: skip
+    scalars = {"0": 0, "1": 1, "q-1": e._Q - 1, "128-bit": rng.getrandbits(128), "253-bit": rng.getrandbits(253)}
+    pairs = [(p, s) for p in named.values() for s in scalars.values()]
+    points_t = torch.from_numpy(m.encode_points([p for p, _ in pairs])).cuda()
+    scalars_t = torch.from_numpy(m.encode_scalars([s for _, s in pairs]).view(np.int32)).cuda()
+    max_err, limbs_equal, got = gate_msm_vs_plain(ce, m, e, points_t, scalars_t)
+    oracle_flags = [int(e._in_prime_subgroup(p)) for p, _ in pairs]
+    oracle_ok = got.flags.tolist() == oracle_flags and all(
+        e._pt_equal(m.decode_point(got.products[i].cpu()), e._pt_mul(s, p)) for i, (p, s) in enumerate(pairs)
+    )
+    if max_err or not oracle_ok:
+        raise AssertionError(f"ed25519 kernel vs plain: max_abs_err {max_err}, oracle {oracle_ok}")
+    # The main path's shape: the 1,024-signature batch as verify_batch_device
+    # launches it (coefficients from a seed, so both see the same scalars).
+    prep = m.prepare(triples[:SIG_BATCH], random.Random(1024))
+    points_1k, scalars_1k = m.to_device(prep, torch.device("cuda"))
+    err_1k, limbs_1k, _ = gate_msm_vs_plain(ce, m, e, points_1k, scalars_1k)
+    if err_1k:
+        raise AssertionError(f"ed25519 kernel vs plain at {SIG_BATCH} signatures: max_abs_err {err_1k}")
+    max_err = max(max_err, err_1k)
+    plain_calls = calls_ms(lambda: ce.plain_gate_msm(points_1k, scalars_1k))
+    plain_ms = statistics.median(plain_calls)
+    log = kernel.built().ptxas_log
+    emit({"phase": "ed25519_kernel_vs_plain", "cases": len(pairs), "points": list(named),
+          "scalars": list(scalars), "max_abs_err": max_err, "product_limbs_equal": limbs_equal and limbs_1k,
+          "gate_flags": got.flags.tolist(), "batch_points": int(points_1k.shape[0]),
+          "registers_local_bytes": {name: kernel.attributes(i) for i, name in enumerate(kernel.KERNELS)},
+          "ptxas": ptxas_lines(log, "gate_smul_kernel") + ptxas_lines(log, "point_sum_kernel"),
+          "plain_ms_1024": plain_ms, "plain_ms_1024_calls": plain_calls, "fixtures_s": fixtures_s})  # fmt: skip
+
+    # -- 8. verify_batch_device: verdicts, timings --------------------------
+    batch = triples[:SIG_BATCH]
+
+    def corrupt(tr, pos):
+        out = list(tr)
+        pub, sig, msg = out[pos]
+        out[pos] = (pub, sig[:20] + bytes([sig[20] ^ 1]) + sig[21:], msg)
+        return out
+
+    def swap(tr, pos, triple):
+        out = list(tr)
+        out[pos] = triple
+        return out
+
+    cases = {
+        "valid": (batch, True),
+        **{f"bad sig {pos}": (corrupt(batch, pos), False) for pos in (0, SIG_BATCH // 2 - 1, SIG_BATCH - 1)},
+        f"torsion cancel {SIG_BATCH * 2 // 3}": (
+            swap(batch, SIG_BATCH * 2 // 3, sv.torsion_triple(cancel=True)), False),
+        f"torsion reject {SIG_BATCH // 3}": (swap(batch, SIG_BATCH // 3, sv.torsion_triple(cancel=False)), False),
+    }
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(cases), mp_context=ctx) as ex:
+        host = dict(zip(cases, ex.map(e.verify_batch, [tr for tr, _ in cases.values()])))
+    verdicts = {}
+    for name, (tr, want) in cases.items():
+        verdicts[name] = m.verify_batch_device(tr)
+        if not verdicts[name] == host[name] == want:
+            raise AssertionError(f"verify_batch_device {name}: device {verdicts[name]}, host {host[name]}")
+    before = kernel.launches
+    malformed = swap(batch, 7, (batch[7][0][:31], batch[7][1], batch[7][2]))
+    if m.verify_batch_device(malformed) is not False or kernel.launches != before:
+        raise AssertionError("a malformed batch reached the card")
+    rows = [sv.device_split(triples[:n]) for n in (64, 256, SIG_BATCH, PREVERIFY_N)]
+    out = ce.GateMsm(torch.empty(ce.RESULT_LEN, dtype=torch.int32, device="cuda"),
+                     torch.empty_like(points_1k), torch.empty(points_1k.shape[0], dtype=torch.int32, device="cuda"))  # fmt: skip
+    kernel_ms = graph_ms(lambda: kernel(points_1k, scalars_1k, out.products, out.flags, out.result))
+    emit({"phase": "sig_verify", "verdicts": verdicts, "host_verdicts": host,
+          "malformed": False, "malformed_launches": 0, "rows": rows,
+          "kernel_ms_1024": kernel_ms, "graph_launches": 50})  # fmt: skip
+
+    # -- 9. the main path: check_block and preverify_signatures -------------
+    miner = Miner(backend=get_backend("cuda"))
+    parent = make_genesis(SIG_DIFFICULTY)
+
+    def block_of(body_txs):
+        body = (Transaction.coinbase("smoke-miner", 1), *body_txs)
+        header = BlockHeader(1, parent.block_hash(), merkle_root([t.txid() for t in body]),
+                             parent.header.timestamp + 60, SIG_DIFFICULTY, 0)  # fmt: skip
+        return Block(miner.search_nonce(header), body)
+
+    good = block_of(txs[: BLOCK_TXS - 1])
+    bad_txs = list(txs[: BLOCK_TXS - 1])
+    bad_at = BLOCK_TXS // 2
+    bad_txs[bad_at] = dataclasses.replace(bad_txs[bad_at], sig=corrupt([triples[bad_at]], 0)[0][1])
+    bad = block_of(bad_txs)
+    keys.set_sig_backend(None)  # the default rung: the card's
+    if keys.backend() != "device":
+        raise AssertionError(f"the default signature rung is {keys.backend()!r}, not 'device'")
+    try:
+        keys.STATS.reset()
+        kernel.launches = 0
+        t1 = time.perf_counter()
+        check_block(good, SIG_DIFFICULTY, sig_cache=SignatureCache())
+        block_s = time.perf_counter() - t1
+        block_launches, device_sigs = kernel.launches, keys.STATS.backends["device"]
+        t1 = time.perf_counter()
+        proven = preverify_signatures(txs, tag, SignatureCache())
+        preverify_s = time.perf_counter() - t1
+        launches = kernel.launches
+        want_launches = 1 + PREVERIFY_N // keys.BATCH_CHUNK
+        if (device_sigs, block_launches, proven, launches) != (BLOCK_TXS - 1, 1, PREVERIFY_N, want_launches):
+            raise AssertionError(f"check_block: {device_sigs} device signatures, {block_launches} launches; "
+                                 f"preverify: {proven} proven, {launches - block_launches} launches")  # fmt: skip
+        t1 = time.perf_counter()
+        try:
+            check_block(bad, SIG_DIFFICULTY, sig_cache=SignatureCache())
+            raise AssertionError("a block with a bad signature passed check_block")
+        except ValidationError as exc:
+            if str(exc) != "bad transaction signature":
+                raise
+            bad_error = str(exc)
+        bad_s = time.perf_counter() - t1
+    finally:
+        keys.set_sig_backend(None)
+    emit({"phase": "check_block", "txs": len(good.txs), "device_signatures": device_sigs,
+          "launches": {"check_block": block_launches, "preverify": launches - block_launches},
+          "check_block_s": block_s, "preverify_proven": proven, "preverify_s": preverify_s,
+          "bad_block_error": bad_error, "bad_block_s": bad_s})  # fmt: skip
+
+    # The bound: kernel (a)'s work per (point, role) thread, pinned
+    # (GATE_*_PER_THREAD) or its own SASS count where that is less;
+    # kernel (b), at most one point addition per point, is left out.
+    gate_insns = sass.function_insns(sass.disassemble(kernel.built().path), "gate_smul_kernel")
+    per_thread = sass.nested_counts(gate_insns, GATE_LOOP_TRIPS)
+    alu = min(GATE_ALU_PER_THREAD, per_thread[1])
+    fma = min(GATE_FMA_PER_THREAD, per_thread[2])
+    insns = min(GATE_ALU_PER_THREAD + GATE_FMA_PER_THREAD, per_thread[0])
+    loops = [[len(b), sum(sass.is_alu(i.opcode) for i in b), sum(sass.is_fma(i.opcode) for i in b)]
+             for b in sass.loop_bodies(gate_insns)]  # fmt: skip
+    threads = 2 * int(points_1k.shape[0])
+    ops_ms = peak.bound_ms(threads * alu, threads * insns, sms, fma=threads * fma)
+    bytes_ms = 1e3 * (int(points_1k.shape[0]) * (4 * 40 + 32) + 4 * ce.RESULT_LEN) / HBM_BYTES_PER_S
+    return {
+        "name": "ed25519_msm", "route": "cuda",
+        "source": "p1_tpu_torch/hashx/csrc/ed25519_msm.cu",
+        "replaces": "p1_tpu/hashx/ed25519_msm.py:361", "replaces_kind": "XLA program, not Pallas",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+        "shape": f"{SIG_BATCH} signatures, {threads // 2} points",
+        "per_thread_insns_alu_fma": list(per_thread),
+        "pinned_per_thread_alu_fma": [GATE_ALU_PER_THREAD, GATE_FMA_PER_THREAD],
+        "loop_static_insns_alu_fma": loops,
+        "us_per_sig_1024": next(r["us_per_sig"] for r in rows if r["n"] == SIG_BATCH),
+    }  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -525,7 +809,7 @@ def main() -> int:
     from p1_tpu_torch.cli import mine_chain, mine_report
     from p1_tpu_torch.core import genesis_header, meets_target
     from p1_tpu_torch.core.hashutil import sha256d
-    from p1_tpu_torch.hashx import cuda_verify, get_backend, kernel_build, sass
+    from p1_tpu_torch.hashx import cuda_ed25519, cuda_verify, get_backend, kernel_build, sass
     from p1_tpu_torch.hashx import cuda_backend as cb
     from p1_tpu_torch.hashx.torch_backend import _RAMP_FLOOR
     from p1_tpu_torch.hashx.torch_sha256 import search_step
@@ -545,6 +829,7 @@ def main() -> int:
         (cb.SearchKernel.SOURCE, kernel_build.CSRC),
         (vr.RooflineKernel.SOURCE, vr.RooflineKernel.CSRC),
         (cuda_verify.VerifyKernel.SOURCE, kernel_build.CSRC),
+        (cuda_ed25519.Ed25519Kernel.SOURCE, kernel_build.CSRC),
     ])  # fmt: skip
     build_wall_s = time.perf_counter() - t_build
     built = kernel.built()
@@ -664,6 +949,9 @@ def main() -> int:
     # -- 6. replay: BASELINE config 3 ---------------------------------------
     verify, search_launches = phase_replay(cuda_verify, sass, sms, peak, white_paper)
 
+    # -- 7-9. Ed25519 signature validation on the card ----------------------
+    ed25519 = phase_ed25519(sass, sms, peak)
+
     print(json.dumps({"kernels": [
         {
             "name": "sha256d_search", "route": "cuda",
@@ -677,6 +965,7 @@ def main() -> int:
         },
         roof,
         verify,
+        ed25519,
     ]}), flush=True)  # fmt: skip
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

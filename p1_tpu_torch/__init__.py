@@ -5,21 +5,28 @@ against.  It imports ``torch``, numpy and the standard library, never
 ``jax`` and never ``p1_tpu``: where it needs one of the reference's
 JAX-free modules it keeps its own copy under the same module path.
 
-It carries the mining and replay paths and the integer-ALU roofline:
+It carries the mining, replay and signature-validation paths and the
+integer-ALU roofline:
 
 - ``p1_tpu_torch.core``   — ``BlockHeader`` (the reference's 80-byte
-  encoding), target math, the genesis header (fixed difficulty or with
-  the retarget rule's commitment), ``RetargetRule``.
+  encoding), target math, the genesis header and block (fixed difficulty
+  or with the retarget rule's commitment), ``RetargetRule``,
+  ``Transaction``, ``Block`` and the merkle functions, Ed25519 keys and
+  the signature-backend ladder (``keys``), the verify-once cache.
 - ``p1_tpu_torch.hashx``  — its own ``HashBackend`` registry: ``cpu``
   (hashlib) and ``cuda``, the SHA-256d nonce search as a hand-written
   CUDA kernel for Hopper (``hashx/csrc/sha256d_search.cu``); the
   header-chain verify kernel (``hashx/csrc/verify_chain.cu``); their plain
-  PyTorch versions (``hashx/torch_sha256.py``); SASS counting
-  (``hashx/sass.py``).
+  PyTorch versions (``hashx/torch_sha256.py``); Ed25519 batch
+  verification with the subgroup gate and the MSM on the card
+  (``hashx/ed25519_msm.py``, kernel ``hashx/csrc/ed25519_msm.cu``); SASS
+  counting (``hashx/sass.py``).
 - ``p1_tpu_torch.miner``  — ``Miner.search_nonce()``.
-- ``p1_tpu_torch.chain``  — header-chain generation and replay.
-- ``p1_tpu_torch.benchmarks.vpu_roofline`` — the integer-ALU roofline
-  (``benchmarks/csrc/int_roofline.cu``).
+- ``p1_tpu_torch.chain``  — header-chain generation and replay; block
+  validation (``check_block``, ``preverify_signatures``).
+- ``p1_tpu_torch.benchmarks`` — the integer-ALU roofline
+  (``benchmarks/csrc/int_roofline.cu``), ``verify_chain``'s device time,
+  the signature-verification bench (``sig_verify``).
 - ``p1_tpu_torch.cli``    — ``python -m p1_tpu_torch mine|replay``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks

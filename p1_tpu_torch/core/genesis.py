@@ -4,8 +4,8 @@ The port's copy of the header half of ``p1_tpu/core/genesis.py``: zero
 prev-hash, a fixed timestamp, nonce 0, and in the merkle field either the
 empty root (fixed difficulty) or the commitment to the retarget rule's
 parameters, so two chains with different rules have different ids.
-Mining and replay start from this header's hash.  The ``Block`` wrapper
-arrives with the slice that ports ``core/block.py`` and ``tx.py``.
+Mining and replay start from this header's hash; ``make_genesis`` wraps
+it in a ``Block`` with no transactions, as ``p1_tpu``'s does.
 """
 
 from __future__ import annotations
@@ -13,14 +13,13 @@ from __future__ import annotations
 import functools
 import struct
 
+from p1_tpu_torch.core.block import EMPTY_MERKLE_ROOT, Block
 from p1_tpu_torch.core.hashutil import sha256d
 from p1_tpu_torch.core.header import BlockHeader
 from p1_tpu_torch.core.retarget import RetargetRule
 
 GENESIS_VERSION = 1
 GENESIS_TIMESTAMP = 1735689600  # 2025-01-01T00:00:00Z, fixed forever
-#: The merkle root of a block with no transactions (``core/block.py``).
-EMPTY_MERKLE_ROOT = bytes(32)
 #: v2: the commitment gained max_step (the forward-dating bound) — a
 #: chain with a different cap is a different chain.
 _RETARGET_TAG = b"p1-retarget-v2"
@@ -51,6 +50,12 @@ def genesis_header(difficulty: int, retarget: RetargetRule | None = None) -> Blo
         difficulty=difficulty,
         nonce=0,
     )
+
+
+@functools.lru_cache(maxsize=256)
+def make_genesis(difficulty: int, retarget: RetargetRule | None = None) -> Block:
+    """The genesis block: ``genesis_header`` and no transactions."""
+    return Block(genesis_header(difficulty, retarget), ())
 
 
 def genesis_hash(difficulty: int, retarget: RetargetRule | None = None) -> bytes:

@@ -21,6 +21,11 @@ import subprocess
 #: SM per clock: IADD3, LOP3, SHF, ISETP, ...) — NVIDIA H100 white paper.
 DISPATCH_PER_SM_CLK = 128
 ALU_PER_SM_CLK = 64
+#: Integer multiply-adds (IMAD, IMAD.WIDE, ...) issue to the FMA pipe: 64
+#: per clock per SM on compute capability 9.0 (CUDA C++ Programming
+#: Guide, arithmetic instruction throughput).  IMAD.WIDE is counted as one
+#: issue like the rest, which can only make a bound lower.
+FMA_PER_SM_CLK = 64
 #: SASS opcodes that do not occupy the integer ALU pipe.  IMAD and VIADD
 #: are integer adds that the compiler issues to the FMA pipe: on the H100
 #: the roofline's ``rot`` and ``sha`` mixes (SHF and LOP3 only) saturate at
@@ -37,6 +42,12 @@ _INSN = re.compile(
 
 def is_alu(opcode: str) -> bool:
     return not _NOT_ALU.match(opcode)
+
+
+def is_fma(opcode: str) -> bool:
+    """Integer work that issues to the FMA pipe (IMAD in all its forms,
+    VIADD, IMUL)."""
+    return opcode.startswith(("IMAD", "VIADD", "IMUL"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,16 +102,22 @@ def sass_counts(lib_path: pathlib.Path, kernel: str) -> tuple[int, int]:
     return counts(function_insns(disassemble(lib_path), kernel))
 
 
-def loop_bodies(insns: list[Insn]) -> list[list[Insn]]:
-    """The instructions of each loop of the function: from the target of a
-    backward branch through that branch.  (The ``BRA`` to itself that ends
-    every function after its ``EXIT`` is no loop.)"""
+def loop_ranges(insns: list[Insn]) -> list[tuple[int, int]]:
+    """(first, last) address of each loop of the function, by first
+    address: from the target of a backward branch through that branch.
+    (The ``BRA`` to itself that ends every function after its ``EXIT`` is
+    no loop.)"""
     loops = []
     for insn in insns:
         m = re.match(r"(?:`\()?(0x[0-9a-f]+)", insn.operands)
         if insn.opcode.startswith("BRA") and m and int(m.group(1), 16) < insn.address:
             loops.append((int(m.group(1), 16), insn.address))
-    return [[i for i in insns if start <= i.address <= end] for start, end in loops]
+    return sorted(loops)
+
+
+def loop_bodies(insns: list[Insn]) -> list[list[Insn]]:
+    """The instructions of each loop of the function (``loop_ranges``)."""
+    return [[i for i in insns if start <= i.address <= end] for start, end in loop_ranges(insns)]
 
 
 def loop_body(insns: list[Insn]) -> list[Insn]:
@@ -125,3 +142,23 @@ def per_item_counts(insns: list[Insn], trips: int) -> tuple[int, int]:
 def opcode_histogram(insns: list[Insn]) -> dict[str, int]:
     """Instructions by base opcode (``SHF.R.W.U32.HI`` counts as ``SHF``)."""
     return dict(collections.Counter(i.opcode.split(".")[0] for i in insns).most_common())
+
+
+def nested_counts(insns: list[Insn], trips: list[int]) -> tuple[int, int, int]:
+    """(all, integer-ALU, FMA-pipe) instructions one thread executes in a
+    function whose loops, in ``loop_ranges`` order, run ``trips[k]`` times
+    each time they are entered; an instruction counts once per trip of
+    every loop around it (nested loops multiply)."""
+    ranges = loop_ranges(insns)
+    if len(ranges) != len(trips):
+        raise RuntimeError(f"expected {len(trips)} loops, found {len(ranges)}: {ranges}")
+    total = alu = fma = 0
+    for i in insns:
+        weight = 1
+        for (start, end), n in zip(ranges, trips):
+            if start <= i.address <= end:
+                weight *= n
+        total += weight
+        alu += weight * is_alu(i.opcode)
+        fma += weight * is_fma(i.opcode)
+    return total, alu, fma

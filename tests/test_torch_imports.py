@@ -38,6 +38,15 @@ PORT_MODULES = (
     "p1_tpu_torch.benchmarks.vpu_roofline",
     "p1_tpu_torch.chain.replay",
     "p1_tpu_torch.core.retarget",
+    "p1_tpu_torch.core._ed25519",
+    "p1_tpu_torch.core.keys",
+    "p1_tpu_torch.core.sigcache",
+    "p1_tpu_torch.core.tx",
+    "p1_tpu_torch.core.block",
+    "p1_tpu_torch.chain.validate",
+    "p1_tpu_torch.hashx.ed25519_msm",
+    "p1_tpu_torch.hashx.cuda_ed25519",
+    "p1_tpu_torch.benchmarks.sig_verify",
 )
 
 
@@ -45,15 +54,18 @@ def test_every_module_imports_without_jax_or_p1_tpu():
     mods = _modules()
     assert set(PORT_MODULES) <= set(mods)
     # Importing a kernel's module builds nothing and touches no GPU-only
-    # package: the kernels are built and loaded at their first launch.
+    # package (nor the optional ``cryptography`` wheel: the port imports
+    # torch, numpy and the standard library): the kernels are built and
+    # loaded at their first launch.
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'p1_tpu'))\n"
-        "bad += sorted(m for m in sys.modules if m.split('.')[0] == 'triton')\n"
-        "from p1_tpu_torch.hashx import cuda_backend, cuda_verify\n"
+        "bad += sorted(m for m in sys.modules if m.split('.')[0] in ('triton', 'cryptography'))\n"
+        "from p1_tpu_torch.hashx import cuda_backend, cuda_ed25519, cuda_verify\n"
         "from p1_tpu_torch.benchmarks import vpu_roofline\n"
-        "wrappers = (cuda_backend.sha256d_search, cuda_verify.verify_chain, vpu_roofline.int_roofline)\n"
+        "wrappers = (cuda_backend.sha256d_search, cuda_verify.verify_chain, vpu_roofline.int_roofline,\n"
+        "            cuda_ed25519.ed25519_msm)\n"
         "bad += [type(w).__name__ for w in wrappers if w._built is not None or w.launches]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

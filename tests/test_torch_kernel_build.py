@@ -7,6 +7,8 @@ is exercised up to the compiler, the parser on a synthetic listing in
 ``cuobjdump``'s format.
 """
 
+import pathlib
+
 import pytest
 
 from p1_tpu_torch.benchmarks import vpu_roofline
@@ -93,15 +95,115 @@ def test_library_path_hashes_source_headers_and_flags(tmp_path):
 
 
 def test_kernel_sources_are_where_the_wrappers_look():
-    from p1_tpu_torch.hashx import cuda_backend, cuda_verify
+    from p1_tpu_torch.hashx import cuda_backend, cuda_ed25519, cuda_verify
 
+    paths = set()
     for source, csrc in (
         (cuda_backend.SearchKernel.SOURCE, kernel_build.CSRC),
         (cuda_verify.VerifyKernel.SOURCE, kernel_build.CSRC),
         (vpu_roofline.RooflineKernel.SOURCE, vpu_roofline.RooflineKernel.CSRC),
+        (cuda_ed25519.Ed25519Kernel.SOURCE, kernel_build.CSRC),
     ):
         assert (csrc / source).is_file()
-        assert kernel_build.library_path(source, csrc).suffix == ".so"
+        path = kernel_build.library_path(source, csrc)
+        assert path.suffix == ".so" and path.name.startswith(pathlib.Path(source).stem + "_")
+        assert kernel_build.library_path(source, csrc) == path  # a stable hash
+        paths.add(path)
+    assert len(paths) == 4
+
+
+def test_ed25519_library_hash_follows_its_source(tmp_path):
+    from p1_tpu_torch.hashx import cuda_ed25519
+
+    source = cuda_ed25519.Ed25519Kernel.SOURCE
+    csrc = _csrc(tmp_path, source=source, body=(kernel_build.CSRC / source).read_text())
+    assert kernel_build.library_path(source, csrc) != kernel_build.library_path(source)  # other headers
+    first = kernel_build.library_path(source, csrc)
+    (csrc / source).write_text((csrc / source).read_text() + "// edited\n")
+    assert kernel_build.library_path(source, csrc) != first
+
+
+@pytest.mark.parametrize(
+    "points,blocks", [(1, 1), (16, 1), (17, 2), (1032, 65), (4104, 257), ((1 << 30) - 1, 1 << 26)]
+)
+def test_ed25519_geometry_covers_every_point_and_role_once(points, blocks):
+    from p1_tpu_torch.hashx import cuda_ed25519
+
+    got = cuda_ed25519.blocks_for(points)
+    assert got == blocks
+    threads = cuda_ed25519.THREADS
+    assert got * threads >= 2 * points > (got - 1) * threads
+
+
+@pytest.mark.parametrize("points", [0, -1, 1 << 30])
+def test_ed25519_geometry_refuses(points):
+    from p1_tpu_torch.hashx import cuda_ed25519
+
+    with pytest.raises(ValueError, match="0 < N < 2\\*\\*30"):
+        cuda_ed25519.blocks_for(points)
+
+
+def test_ed25519_constants_in_the_source_match_the_radix():
+    # The kernel hard-codes 2d mod p in the radix and q's words; they must
+    # be the plain version's.
+    import re
+
+    from p1_tpu_torch.hashx import cuda_ed25519, ed25519_msm
+
+    text = (kernel_build.CSRC / cuda_ed25519.Ed25519Kernel.SOURCE).read_text()
+    d2 = re.search(r"kD2\[kLimbs\] = \{([^}]*)\}", text).group(1)
+    assert [int(v) for v in d2.split(",")] == ed25519_msm.fe_from_int(2 * ed25519_msm._py._D).tolist()
+    q = re.search(r"kQWords\[8\] = \{([^}]*)\}", text).group(1)
+    assert [int(v.strip().rstrip("u"), 0) for v in q.split(",")] == list(ed25519_msm.Q_WORDS)
+    assert f"kGateThreads = {cuda_ed25519.THREADS};" in text
+
+
+def test_ed25519_wrapper_refuses_cpu_tensors_without_building():
+    import torch
+
+    from p1_tpu_torch.hashx import cuda_ed25519
+
+    kernel = cuda_ed25519.Ed25519Kernel()
+    pts = torch.zeros((3, 4, 10), dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32 CUDA tensor"):
+        kernel(pts, torch.zeros((3, 8), dtype=torch.int32), pts.clone(),
+               torch.zeros(3, dtype=torch.int32), torch.zeros(41, dtype=torch.int32))  # fmt: skip
+    assert kernel._built is None and kernel.launches == 0
+
+
+NESTED = """
+\t\tFunction : _ZN4gate_smul_kernelEv
+        /*0000*/                   IMAD R1, R2, R3, R4 ;
+        /*0010*/                   IADD3 R1, R2, R3, RZ ;
+        /*0020*/                   IMAD.WIDE R4, R2, R3, R4 ;
+        /*0030*/               @P0 BRA 0x10 ;
+        /*0040*/                   LOP3.LUT R2, R2, R4, R5, 0x96, !PT ;
+        /*0050*/                   IMAD.WIDE R4, R2, R3, R4 ;
+        /*0060*/                   SHF.R.S64 R2, R3, 0x7, R3 ;
+        /*0070*/               @P1 BRA 0x50 ;
+        /*0080*/               @P2 BRA 0x40 ;
+        /*0090*/                   EXIT ;
+        /*00a0*/                   BRA 0xa0;
+"""
+
+
+def test_nested_counts_multiply_nested_trips():
+    insns = sass.function_insns(NESTED, "gate_smul_kernel")
+    assert sass.loop_ranges(insns) == [(0x10, 0x30), (0x40, 0x80), (0x50, 0x70)]
+    # Outside loops: IMAD, EXIT, BRA (3); loop 1 x14: IADD3, IMAD.WIDE, BRA;
+    # loop 2 x64: LOP3, BRA; its inner loop x64x4: IMAD.WIDE, SHF, BRA.
+    total, alu, fma = sass.nested_counts(insns, [14, 64, 4])
+    assert total == 3 + 14 * 3 + 64 * 2 + 256 * 3
+    assert alu == 14 * 1 + 64 * 1 + 256 * 1
+    assert fma == 1 + 14 * 1 + 256 * 1
+    with pytest.raises(RuntimeError, match="expected 2 loops"):
+        sass.nested_counts(insns, [14, 64])
+
+
+@pytest.mark.parametrize("opcode,fma", [("IMAD.WIDE", True), ("IMAD.WIDE.U32", True), ("VIADD", True),
+                                        ("IADD3", False), ("SHF.R.S64", False), ("LDL", False)])  # fmt: skip
+def test_fma_pipe_classification(opcode, fma):
+    assert sass.is_fma(opcode) is fma
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
