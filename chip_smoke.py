@@ -42,23 +42,28 @@ line each, and fails (non-zero exit, no last line) if any phase fails:
    (``benchmarks/verify_time.py``), the profiler's kernel time, and the
    host loop's time (``ms_enqueue``).  verify_chain's bound counts a
    pinned work per header (``VERIFY_ALU_PER_HEADER``), or the kernel's own
-   where that is less, and ed25519_msm's a pinned work per (point, role)
-   thread (``GATE_ALU_PER_THREAD``, ``GATE_FMA_PER_THREAD``) likewise;
-7. ed25519_kernel_vs_plain — ``ed25519_msm.cu`` (gate and scalar
-   multiplication, then the sum) against the plain ``plain_gate_msm`` on
-   the card: random subgroup points, the identity, points of order 2, 4
-   and 8 and points with a torsion component, each times scalars 0, 1,
-   q − 1, a 128-bit and a 253-bit one; the canonical encodings of every
-   sᵢ·Pᵢ, of the sum and the gate flags must be equal (and equal the
-   big-integer oracle), then the same at the 1,024-signature batch;
+   where that is less, and ed25519_msm's the reference's operations
+   (``ED_OPS_PER_POINT``, ``ED_OPS_PER_BATCH``);
+7. ed25519_kernel_vs_plain — ``ed25519_msm.cu`` (decompression, tables,
+   gate and Horner MSM, then the sum) against the plain
+   ``plain_decode_gate_msm`` on the card: the encodings of random
+   subgroup points, the identity, points of order 2, 4 and 8 and points
+   with a torsion component, each times scalars 0, 1, q − 1, a 128-bit
+   and a 253-bit one, and crafted encodings (y = 0, 1, p − 1 with and
+   without the sign, a non-square y, y ≥ p, random bytes); the decoded
+   points must equal the plain version's and ``_pt_decompress``'s limb for
+   limb, the flags the plain version's and ``_in_prime_subgroup``'s, and
+   the canonical sum the plain version's and the big-integer Σ; then the
+   same at the 1,024-signature batch;
 8. sig_verify — ``verify_batch_device`` at 1,024 signed triples of the
    bench's eight keys: valid, one bad signature at 0 / 511 / 1023, a
-   torsion-cancelling and a torsion-rejecting triple, each verdict equal
-   to ``_ed25519.verify_batch``'s; a malformed batch returns False with
-   no launch; µs per signature and its host/copy/kernel/read-back/close
-   split at 64, 256, 1,024 and 4,096; the kernels' device time at 1,024
-   from a CUDA graph of 50 launches, the plain version's the median of 3
-   calls after a warm one;
+   torsion-cancelling and a torsion-rejecting triple and an R that does
+   not decode, each verdict equal to ``_ed25519.verify_batch``'s; a
+   malformed batch returns False with no launch; µs per signature and
+   its host/copy/kernel/read-back/close split at 64, 256, 1,024 and
+   4,096; the kernels' device time at 1,024 from a CUDA graph of 50
+   launches, block 0's cycles per phase (``phase_clocks``), the plain
+   version's time the median of 3 calls after a warm one;
 9. check_block — the main path whose launches are counted: on the
    default signature rung (``device``, on the card), ``check_block`` on a
    block of a coinbase and 999 signed transfers (one launch, 999 device
@@ -100,28 +105,47 @@ SIG_BATCH = 1024  # keys.BATCH_CHUNK: one device launch
 BLOCK_TXS = 1000  # config.max_block_txs: a coinbase and 999 transfers
 PREVERIFY_N = 4096  # chain/validate.py PREVERIFY_WINDOW
 SIG_DIFFICULTY = 8  # the check_block fixture chain
-#: Trips of gate_smul_kernel's loops in address order: the window table
-#: (14 additions), the windows (64), the doublings of a window (4).
-GATE_LOOP_TRIPS = [14, 64, 4]
-#: ed25519_msm's work per (point, role) thread, pinned from the operation
-#: count rather than the kernel's SASS: 14 + 64 point additions (9 field
-#: products and 9 field additions or subtractions each) and 256 doublings
-#: (4 squares, 4 products, 6 additions or subtractions), in ten limbs.  A
+#: q = 2^252 + 27742317777372353535851937790883648493 in 4-bit digits,
+#: least significant first: the gate's scalar, the same for every point.
+ED_Q_DIGITS = tuple(((2**252 + 27742317777372353535851937790883648493) >> (4 * w)) & 15 for w in range(64))
+#: ed25519_msm's work, pinned from the reference's operation count rather
+#: than from a design's SASS, counting only the operations this run's
+#: data needs: per point, one decompression (ref10's pow22523 chain, 251
+#: squarings and 11 products, and around it 3 squarings and 9 products: 254
+#: and 20), a window table of 14 point additions, the gate's 33 additions
+#: (one per non-zero digit of q) and 252 doublings (q's top digit is 1, so
+#: the four doublings before it would act on the identity), and the MSM's
+#: 64 additions (one table row per point per window, summed); per batch,
+#: the Horner accumulator's 252 doublings and 63 additions (its top window
+#: likewise starts from the identity), less the 64 that a window's sum of N
+#: rows saves (N - 1 additions, not N): -1 addition.  Per operation, in ten
+#: limbs: a point addition is 9 field products and 9 field additions or
+#: subtractions, a doubling 4 squares, 4 products and 6 additions.  A
 #: product costs 100 limb products (IMAD.WIDE, FMA pipe, each accumulating
 #: into its 64-bit column) and 5 doublings of odd limbs (ALU); a square 55
 #: limb products and 10 doublings.  Either one's reduction: 9 wrapped
-#: columns folded by 19 (a 64-bit multiply-add, 2 FMA each), a carry pass
-#: on 64-bit limbs (8 ALU a limb: rounding add, shift, subtract, carry add,
+#: columns folded by 19 (a 64-bit multiply-add, 2 FMA each), a carry pass on
+#: 64-bit limbs (8 ALU a limb: rounding add, shift, subtract, carry add,
 #: each on two words) and one on 32-bit limbs (4 ALU a limb), each pass's
 #: top carry folded by 19 (1 FMA): 120 ALU and 20 FMA.  An addition or
-#: subtraction is 10 ALU.  So a product is 125 ALU + 120 FMA, a square 130
-#: + 75, a point addition 1,215 + 1,080, a doubling 1,080 + 780, and a
-#: thread 78 · 1,215 + 256 · 1,080 = 371,250 ALU and 78 · 1,080 + 256 · 780
-#: = 283,920 FMA instructions.  The bound takes these, or the kernel's own
-#: count where that is less, so a rewrite that adds instructions cannot
-#: loosen it.
-GATE_ALU_PER_THREAD = 371_250
-GATE_FMA_PER_THREAD = 283_920
+#: subtraction is 10 ALU.  So (ALU, FMA): a product (125, 120), a square
+#: (130, 75), a point addition (1,215, 1,080), a doubling (1,080, 780).  A
+#: point is 111 · 1,215 + 252 · 1,080 + 254 · 130 + 20 · 125 = 442,545 ALU
+#: and 111 · 1,080 + 252 · 780 + 254 · 75 + 20 · 120 = 337,890 FMA; a batch
+#: adds 252 · 1,080 − 1,215 = 270,945 ALU and 252 · 780 − 1,080 = 195,480
+#: FMA.  At 1,033 points (a 1,024-signature chunk of eight keys and the
+#: base point): 457.42 M ALU instructions, ~27.3 µs at 64 a clock per SM on
+#: 132 SMs at 1,980 MHz.  The bound takes these alone: the count is the
+#: reference's, whatever the design, so a rewrite that adds instructions
+#: cannot loosen it.
+ED_GATE_ADDS = sum(d != 0 for d in ED_Q_DIGITS)
+ED_GATE_DOUBLES = 4 * max(w for w, d in enumerate(ED_Q_DIGITS) if d)
+ED_OPS_PER_POINT = {"add": 14 + ED_GATE_ADDS + 64, "double": ED_GATE_DOUBLES, "square": 254, "product": 20}
+ED_OPS_PER_BATCH = {"add": 63 - 64, "double": 4 * 63, "square": 0, "product": 0}
+#: The least y < p that is no point's (x² = u/v has no root): an R that
+#: passes the host's checks and that decompression rejects.
+NOT_A_POINT_Y = 2
+ED_OP_ALU_FMA = {"add": (1215, 1080), "double": (1080, 780), "square": (130, 75), "product": (125, 120)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 T0 = time.perf_counter()
 
@@ -586,31 +610,45 @@ def compressed(m, e, limbs) -> "np.ndarray":
     return np.frombuffer(raw, dtype=np.uint8).reshape(-1, 32).astype(np.int64)
 
 
-def gate_msm_vs_plain(ce, m, e, points, scalars) -> tuple[int, bool, object]:
-    """The kernel against the plain version on the same card tensors: the
-    largest byte difference between the canonical encodings of every
-    sᵢ·Pᵢ and of the sum, and between the gate flags; whether every
-    product's limbs are equal too; the kernel's output."""
+def decode_gate_msm_vs_plain(ce, m, e, encodings, scalars) -> tuple[int, bool, object]:
+    """The kernels against the plain version and the big-integer oracle on
+    the same card tensors: the largest difference between the decoded
+    limbs, the flags, the all-ok flags and the canonical encodings of the
+    sums; whether the decoded limbs equal ``_pt_decompress``'s (the
+    identity's where it returns None), the decode bits its verdicts, the
+    gate bits ``_in_prime_subgroup``'s and the sum the big-integer Σ; the
+    kernels' output."""
     import torch
 
-    got = ce.gate_msm(points, scalars)
-    want = ce.plain_gate_msm(points, scalars)
+    got = ce.decode_gate_msm(encodings, scalars)
+    want = ce.plain_decode_gate_msm(encodings, scalars)
     torch.cuda.synchronize()
     err = max(
+        int((got.decoded - want.decoded).abs().max()),
         int((got.flags - want.flags).abs().max()),
-        int(abs(int(got.result[0]) - int(want.result[0]))),
-        int(abs(compressed(m, e, got.products) - compressed(m, e, want.products)).max()),
+        abs(int(got.result[0]) - int(want.result[0])),
         int(abs(compressed(m, e, got.result[1:]) - compressed(m, e, want.result[1:])).max()),
     )
-    # The two sum the products in different orders (other representatives
-    # of the same point); each product is computed in the same order.
-    return err, torch.equal(got.products, want.products), got
+    raws = [bytes(r) for r in encodings.cpu().numpy().view("uint8").reshape(-1, 32)]
+    words = scalars.cpu().numpy().view("<u4")
+    flags = got.flags.tolist()
+    total, oracle = e._IDENT, True
+    for i, raw in enumerate(raws):
+        pt = e._pt_decompress(raw)
+        want_limbs = m.encode_points([pt if pt is not None else e._IDENT])[0]
+        oracle &= got.decoded[i].cpu().numpy().tolist() == want_limbs.tolist()
+        oracle &= bool(flags[i] & 1) is (pt is not None)
+        if pt is not None:
+            oracle &= bool(flags[i] & 2) is e._in_prime_subgroup(pt)
+            total = e._pt_add(total, e._pt_mul(int.from_bytes(words[i].tobytes(), "little"), pt))
+    oracle &= e._pt_equal(m.decode_point(got.result[1:].cpu()), total)
+    return err, oracle, got
 
 
 def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
     """Phases 7-9: the Ed25519 kernels against the plain version on
-    small-order and random fixtures and at the 1,024-signature shape;
-    ``verify_batch_device`` verdicts and timings; the main path,
+    crafted, small-order and random fixtures and at the 1,024-signature
+    shape; ``verify_batch_device`` verdicts and timings; the main path,
     ``check_block`` on a full block and ``preverify_signatures`` on a
     4,096-signature window under the ``device`` rung.  Returns the
     kernel's entry of the ``kernels`` line."""
@@ -652,32 +690,33 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
              "order 2": t2, "order 4": t4, "order 8": t8,
              "random + order 8": e._pt_add(subgroup[0], t8), "random + order 4": e._pt_add(subgroup[1], t4)}  # fmt: skip
     scalars = {"0": 0, "1": 1, "q-1": e._Q - 1, "128-bit": rng.getrandbits(128), "253-bit": rng.getrandbits(253)}
-    pairs = [(p, s) for p in named.values() for s in scalars.values()]
-    points_t = torch.from_numpy(m.encode_points([p for p, _ in pairs])).cuda()
+    crafted = {"y=0": 0, "y=0 sign": 1 << 255, "y=1 sign": 1 | 1 << 255, "y=p-1": e._P - 1,
+               "y=p-1 sign": e._P - 1 | 1 << 255, "non-square y=2": 2, "y=p": e._P, "y=2^255-1": (1 << 255) - 1,
+               **{f"random bytes {i}": rng.getrandbits(256) for i in range(4)}}  # fmt: skip
+    pairs = [(e._pt_compress(p), s) for p in named.values() for s in scalars.values()]
+    pairs += [(y.to_bytes(32, "little"), rng.getrandbits(253)) for y in crafted.values()]
+    enc_t = torch.from_numpy(m.encode_encodings([r for r, _ in pairs]).view(np.int32)).cuda()
     scalars_t = torch.from_numpy(m.encode_scalars([s for _, s in pairs]).view(np.int32)).cuda()
-    max_err, limbs_equal, got = gate_msm_vs_plain(ce, m, e, points_t, scalars_t)
-    oracle_flags = [int(e._in_prime_subgroup(p)) for p, _ in pairs]
-    oracle_ok = got.flags.tolist() == oracle_flags and all(
-        e._pt_equal(m.decode_point(got.products[i].cpu()), e._pt_mul(s, p)) for i, (p, s) in enumerate(pairs)
-    )
+    max_err, oracle_ok, got = decode_gate_msm_vs_plain(ce, m, e, enc_t, scalars_t)
     if max_err or not oracle_ok:
         raise AssertionError(f"ed25519 kernel vs plain: max_abs_err {max_err}, oracle {oracle_ok}")
     # The main path's shape: the 1,024-signature batch as verify_batch_device
     # launches it (coefficients from a seed, so both see the same scalars).
     prep = m.prepare(triples[:SIG_BATCH], random.Random(1024))
-    points_1k, scalars_1k = m.to_device(prep, torch.device("cuda"))
-    err_1k, limbs_1k, _ = gate_msm_vs_plain(ce, m, e, points_1k, scalars_1k)
-    if err_1k:
-        raise AssertionError(f"ed25519 kernel vs plain at {SIG_BATCH} signatures: max_abs_err {err_1k}")
-    max_err = max(max_err, err_1k)
-    plain_calls = calls_ms(lambda: ce.plain_gate_msm(points_1k, scalars_1k))
+    enc_1k, scalars_1k = m.to_device(prep, torch.device("cuda"))
+    err_1k, oracle_1k, got_1k = decode_gate_msm_vs_plain(ce, m, e, enc_1k, scalars_1k)
+    if err_1k or not oracle_1k or int(got_1k.result[0]) != 1:
+        raise AssertionError(f"ed25519 kernel vs plain at {SIG_BATCH} signatures: max_abs_err {err_1k}, "
+                             f"oracle {oracle_1k}, all-ok {int(got_1k.result[0])}")  # fmt: skip
+    plain_calls = calls_ms(lambda: ce.plain_decode_gate_msm(enc_1k, scalars_1k))
     plain_ms = statistics.median(plain_calls)
     log = kernel.built().ptxas_log
-    emit({"phase": "ed25519_kernel_vs_plain", "cases": len(pairs), "points": list(named),
-          "scalars": list(scalars), "max_abs_err": max_err, "product_limbs_equal": limbs_equal and limbs_1k,
-          "gate_flags": got.flags.tolist(), "batch_points": int(points_1k.shape[0]),
-          "registers_local_bytes": {name: kernel.attributes(i) for i, name in enumerate(kernel.KERNELS)},
-          "ptxas": ptxas_lines(log, "gate_smul_kernel") + ptxas_lines(log, "point_sum_kernel"),
+    attrs = {name: kernel.attributes(i) for i, name in enumerate(kernel.KERNELS)}
+    emit({"phase": "ed25519_kernel_vs_plain", "cases": len(pairs), "points": list(named), "crafted": list(crafted),
+          "scalars": list(scalars), "max_abs_err": max_err, "decoded_limbs_equal": True, "oracle": True,
+          "flags": got.flags.tolist(), "batch_points": int(enc_1k.shape[0]), "batch_blocks": ce.blocks_for(int(enc_1k.shape[0])),
+          "threads": ce.THREADS, "attributes": attrs,
+          "ptxas": ptxas_lines(log, "decode_gate_msm_kernel") + ptxas_lines(log, "point_sum_kernel"),
           "plain_ms_1024": plain_ms, "plain_ms_1024_calls": plain_calls, "fixtures_s": fixtures_s})  # fmt: skip
 
     # -- 8. verify_batch_device: verdicts, timings --------------------------
@@ -700,26 +739,49 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
         f"torsion cancel {SIG_BATCH * 2 // 3}": (
             swap(batch, SIG_BATCH * 2 // 3, sv.torsion_triple(cancel=True)), False),
         f"torsion reject {SIG_BATCH // 3}": (swap(batch, SIG_BATCH // 3, sv.torsion_triple(cancel=False)), False),
+        # An R with y < p that is no point: it passes the host's checks and
+        # the card's decompression rejects it.
+        f"undecodable R {SIG_BATCH // 4}": (swap(batch, SIG_BATCH // 4, (
+            batch[SIG_BATCH // 4][0], NOT_A_POINT_Y.to_bytes(32, "little") + batch[SIG_BATCH // 4][1][32:],
+            batch[SIG_BATCH // 4][2])), False),
     }
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(len(cases), mp_context=ctx) as ex:
         host = dict(zip(cases, ex.map(e.verify_batch, [tr for tr, _ in cases.values()])))
-    verdicts = {}
+    verdicts, case_launches = {}, {}
     for name, (tr, want) in cases.items():
+        before = kernel.launches
         verdicts[name] = m.verify_batch_device(tr)
-        if not verdicts[name] == host[name] == want:
-            raise AssertionError(f"verify_batch_device {name}: device {verdicts[name]}, host {host[name]}")
+        case_launches[name] = kernel.launches - before
+        if not verdicts[name] == host[name] == want or case_launches[name] != 1:
+            raise AssertionError(f"verify_batch_device {name}: device {verdicts[name]}, host {host[name]}, "
+                                 f"{case_launches[name]} launches")  # fmt: skip
     before = kernel.launches
     malformed = swap(batch, 7, (batch[7][0][:31], batch[7][1], batch[7][2]))
     if m.verify_batch_device(malformed) is not False or kernel.launches != before:
         raise AssertionError("a malformed batch reached the card")
     rows = [sv.device_split(triples[:n]) for n in (64, 256, SIG_BATCH, PREVERIFY_N)]
-    out = ce.GateMsm(torch.empty(ce.RESULT_LEN, dtype=torch.int32, device="cuda"),
-                     torch.empty_like(points_1k), torch.empty(points_1k.shape[0], dtype=torch.int32, device="cuda"))  # fmt: skip
-    kernel_ms = graph_ms(lambda: kernel(points_1k, scalars_1k, out.products, out.flags, out.result))
-    emit({"phase": "sig_verify", "verdicts": verdicts, "host_verdicts": host,
+    out, partials = ce.outputs_for(enc_1k)
+    kernel_ms = graph_ms(lambda: kernel(enc_1k, scalars_1k, out.decoded, out.flags, partials, out.result))
+    # Where block 0's time goes, by the SM clock: each phase's cycles, and
+    # per dependent point operation (four lanes) or field operation (one).
+    clocks = torch.zeros(len(ce.PHASES), dtype=torch.int64, device="cuda")
+    kernel(enc_1k, scalars_1k, out.decoded, out.flags, partials, out.result, clocks)
+    at = dict(zip(ce.PHASES, clocks.tolist()))
+    phase_cycles = {
+        "decompression": at["decoded"] - at["start"], "tables": at["tables"] - at["decoded"],
+        "gate": at["gate"] - at["tables"], "window_sums": at["window_sums"] - at["tables"],
+        "horner_high": at["horner_high"] - at["window_sums"], "accumulator": at["accumulator"] - at["start"],
+    }
+    per_op_cycles = {
+        "decompression_field_op": phase_cycles["decompression"] / (ED_OPS_PER_POINT["square"] + ED_OPS_PER_POINT["product"]),
+        "gate_point_op": phase_cycles["gate"] / (ED_GATE_DOUBLES + ED_GATE_ADDS),
+        "horner_point_op": phase_cycles["horner_high"] / (31 * 4 + 32 + 128),
+    }  # fmt: skip
+    emit({"phase": "sig_verify", "verdicts": verdicts, "host_verdicts": host, "case_launches": case_launches,
           "malformed": False, "malformed_launches": 0, "rows": rows,
-          "kernel_ms_1024": kernel_ms, "graph_launches": 50})  # fmt: skip
+          "kernel_ms_1024": kernel_ms, "graph_launches": 50, "phase_cycles_block0": phase_cycles,
+          "cycles_per_op": per_op_cycles})  # fmt: skip
 
     # -- 9. the main path: check_block and preverify_signatures -------------
     miner = Miner(backend=get_backend("cuda"))
@@ -770,19 +832,13 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
           "check_block_s": block_s, "preverify_proven": proven, "preverify_s": preverify_s,
           "bad_block_error": bad_error, "bad_block_s": bad_s})  # fmt: skip
 
-    # The bound: kernel (a)'s work per (point, role) thread, pinned
-    # (GATE_*_PER_THREAD) or its own SASS count where that is less;
-    # kernel (b), at most one point addition per point, is left out.
-    gate_insns = sass.function_insns(sass.disassemble(kernel.built().path), "gate_smul_kernel")
-    per_thread = sass.nested_counts(gate_insns, GATE_LOOP_TRIPS)
-    alu = min(GATE_ALU_PER_THREAD, per_thread[1])
-    fma = min(GATE_FMA_PER_THREAD, per_thread[2])
-    insns = min(GATE_ALU_PER_THREAD + GATE_FMA_PER_THREAD, per_thread[0])
-    loops = [[len(b), sum(sass.is_alu(i.opcode) for i in b), sum(sass.is_fma(i.opcode) for i in b)]
-             for b in sass.loop_bodies(gate_insns)]  # fmt: skip
-    threads = 2 * int(points_1k.shape[0])
-    ops_ms = peak.bound_ms(threads * alu, threads * insns, sms, fma=threads * fma)
-    bytes_ms = 1e3 * (int(points_1k.shape[0]) * (4 * 40 + 32) + 4 * ce.RESULT_LEN) / HBM_BYTES_PER_S
+    # The bound: the reference's operations on this run's points, at the
+    # pinned cost per operation (ED_OP_ALU_FMA).
+    points = int(enc_1k.shape[0])
+    insns = sass.function_insns(sass.disassemble(kernel.built().path), "decode_gate_msm_kernel")
+    alu, fma = ed25519_work(points, ED_OP_ALU_FMA)
+    ops_ms = peak.bound_ms(alu, alu + fma, sms, fma=fma)
+    bytes_ms = 1e3 * (points * (32 + 32 + 4 * 40 + 4) + 4 * ce.RESULT_LEN) / HBM_BYTES_PER_S
     return {
         "name": "ed25519_msm", "route": "cuda",
         "source": "p1_tpu_torch/hashx/csrc/ed25519_msm.cu",
@@ -790,12 +846,24 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
         "launches": launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
-        "shape": f"{SIG_BATCH} signatures, {threads // 2} points",
-        "per_thread_insns_alu_fma": list(per_thread),
-        "pinned_per_thread_alu_fma": [GATE_ALU_PER_THREAD, GATE_FMA_PER_THREAD],
-        "loop_static_insns_alu_fma": loops,
+        "shape": f"{SIG_BATCH} signatures, {points} points, {ce.blocks_for(points)} blocks of {ce.THREADS}",
+        "bound_alu_fma": [alu, fma], "pinned_per_op_alu_fma": ED_OP_ALU_FMA,
+        "pinned_ops_per_point": ED_OPS_PER_POINT, "pinned_ops_per_batch": ED_OPS_PER_BATCH,
+        "sass_insns_alu_fma": [len(insns), sum(sass.is_alu(i.opcode) for i in insns),
+                               sum(sass.is_fma(i.opcode) for i in insns)],
+        "attributes": attrs,
         "us_per_sig_1024": next(r["us_per_sig"] for r in rows if r["n"] == SIG_BATCH),
     }  # fmt: skip
+
+
+def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
+    """(ALU, FMA) instructions of the reference's operations on ``points``
+    points and one batch, at ``per_op``'s (ALU, FMA) cost per operation."""
+    alu = fma = 0
+    for op, (a, f) in per_op.items():
+        count = points * ED_OPS_PER_POINT[op] + ED_OPS_PER_BATCH[op]
+        alu, fma = alu + count * a, fma + count * f
+    return alu, fma
 
 
 def main() -> int:

@@ -1,7 +1,7 @@
 """Signature-verification microbench of the port: its rungs, one harness.
 
     python -m p1_tpu_torch.benchmarks.sig_verify [--batch-sizes 64 256 1024 4096]
-        [--device-batch 1024] [--device cpu]
+        [--device-batch 1024] [--device cpu] [--against CHECKOUT]
 
 The port of ``benchmarks/sig_verify.py``.  ``bench_micro`` times the rungs
 the port has (``core/keys.py``): serial verifies (pure-Python),
@@ -9,15 +9,24 @@ the port has (``core/keys.py``): serial verifies (pure-Python),
 cache.  ``bench_device`` then times ``verify_batch_device`` on one card
 at ``--device-batch`` signatures (default 1024 = ``keys.BATCH_CHUNK``)
 and at every ``--batch-sizes`` entry, as µs per signature end to end and
-its split into host prep (parse, decompress, SHA-512, coefficients,
-dedup, limb encoding), copy in, the kernels (CUDA events), read back and
-host close.  Both need a card and raise without one; ``--device cpu``
-runs ``bench_micro`` with the device rung on the plain PyTorch version
-and has no device rows.  (``--device`` alone, or ``--device cuda``, is
+its split into host prep (parse, SHA-512, coefficients, dedup, the
+encoding and scalar words), copy in, the kernels (decompression, gate and
+MSM; CUDA events), read back and host close.  Both need a card and raise
+without one; ``--device cpu`` runs ``bench_micro`` with the device rung on
+the plain PyTorch version and has no device rows.  (``--device`` alone, or ``--device cuda``, is
 the default.)  The store revalidation of the JAX package's bench
 (``bench_revalidate``) needs the chain store and comes with the ``node``
 slice.  Prints one JSON line, then (on the card) the card's name and
 power limit.
+
+With ``--against``, the checkout at CHECKOUT (a directory that holds
+``p1_tpu_torch``, e.g. ``git archive <commit> | tar -x -C build/parent``)
+is timed beside this one on the same triples: each revision, in a
+process of its own with its own package on the path and its own kernel
+build, runs its own ``device_split`` at every ``--batch-sizes`` entry and
+times its own kernels at ``--device-batch`` from a CUDA graph
+(``verify_time.graph_ms``), in turns: the other, this, this, the other.
+Prints one JSON line per process, then the card's name and power limit.
 
 The triples are the JAX package's: eight keypairs ``sigbench-0..7``
 signing ``b"sig-verify-bench-%d"``, signed in worker processes
@@ -32,8 +41,15 @@ import hashlib
 import json
 import multiprocessing
 import os
+import pathlib
+import pickle
+import random
 import subprocess
+import sys
+import tempfile
 import time
+
+HERE = pathlib.Path(__file__).resolve()
 
 #: The bench's eight signing seeds (``Keypair.from_seed_text``'s seeds).
 SEEDS = tuple(hashlib.sha256(f"sigbench-{i}".encode()).digest() for i in range(8))
@@ -162,18 +178,18 @@ def device_split(triples, repeats: int = 3) -> dict:
         t0 = time.perf_counter()
         prep = m.prepare(triples)
         t1 = time.perf_counter()
-        points, scalars = m.to_device(prep, dev)
+        encodings, scalars = m.to_device(prep, dev)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = cuda_ed25519.gate_msm(points, scalars)
+        out = cuda_ed25519.decode_gate_msm(encodings, scalars)
         end.record()
         end.synchronize()
         t3 = time.perf_counter()
         result = out.result.cpu().numpy()
         t4 = time.perf_counter()
-        ok = m.close(result, prep.s_total)
+        ok = m.close(result)
         t5 = time.perf_counter()
         if ok != verdict:
             raise AssertionError(f"staged verdict {ok} != verify_batch_device's {verdict}")
@@ -188,7 +204,7 @@ def device_split(triples, repeats: int = 3) -> dict:
         }
         if best is None or row["staged_us"] < best["staged_us"]:
             best = row
-    return {"n": n, "points": int(points.shape[0]), "verdict": verdict,
+    return {"n": n, "points": int(encodings.shape[0]), "verdict": verdict,
             "us_per_sig": end_to_end, "sigs_per_s": 1e6 / end_to_end, **best}  # fmt: skip
 
 
@@ -208,13 +224,81 @@ def bench_device(batch: int = 1024, batch_sizes=(64, 256, 1024, 4096), repeats: 
             "device_us_per_sig": main["us_per_sig"], "device_rows": rows}  # fmt: skip
 
 
+def kernel_launch(triples):
+    """One launch of the kernels of the package on the path, on the batch
+    ``prepare`` makes of ``triples`` (seeded coefficients), with its
+    outputs allocated once: for ``verify_time.graph_ms``.  Takes both
+    layouts of the wrapper: encodings in (decompression on the card), or
+    decompressed points in and per-point products out (the layout before
+    it)."""
+    import torch
+
+    from p1_tpu_torch.hashx import cuda_ed25519 as ce
+    from p1_tpu_torch.hashx import ed25519_msm as m
+
+    prep = m.prepare(triples, random.Random(len(triples)))
+    inputs, scalars = m.to_device(prep, torch.device("cuda"))
+    if hasattr(ce, "outputs_for"):
+        out, partials = ce.outputs_for(inputs)
+        return lambda: ce.ed25519_msm(inputs, scalars, out.decoded, out.flags, partials, out.result)
+    # PR 4's layout: kept only to time that tree against this one (PERF.md's
+    # PR 4 and PR 5 rows); it can go with the next change of the layout.
+    products = torch.empty_like(inputs)
+    flags = torch.empty(inputs.shape[0], dtype=torch.int32, device=inputs.device)
+    result = torch.empty(ce.RESULT_LEN, dtype=torch.int32, device=inputs.device)
+    return lambda: ce.ed25519_msm(inputs, scalars, products, flags, result)
+
+
+def _worker(triples_path: str, batch: int, batch_sizes) -> dict:
+    """``device_split`` and the kernels' graph time of the package on the
+    path, on the pickled triples."""
+    import torch
+
+    from p1_tpu_torch.benchmarks import sig_verify as own
+    from p1_tpu_torch.benchmarks.verify_time import graph_ms
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("sig_verify measures the card and there is none")
+    triples = pickle.loads(pathlib.Path(triples_path).read_bytes())
+    rows = [own.device_split(triples[:n]) for n in sorted({batch, *batch_sizes})]
+    if not all(r["verdict"] for r in rows):
+        raise AssertionError(f"a valid batch failed on the card: {rows}")
+    return {"package": str(pathlib.Path(own.__file__).resolve().parents[2]), "device_batch": batch,
+            "kernel_ms": graph_ms(kernel_launch(triples[:batch])), "device_rows": rows}  # fmt: skip
+
+
+def against(other: pathlib.Path, batch: int, batch_sizes) -> None:
+    """This checkout and ``other`` in turns (other, this, this, other), each
+    in its own process, on one set of triples."""
+    other = other.resolve()
+    if not (other / "p1_tpu_torch" / "hashx" / "cuda_ed25519.py").is_file():
+        raise SystemExit(f"{other} holds no p1_tpu_torch/hashx/cuda_ed25519.py")
+    here = HERE.parents[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "triples.pickle"
+        path.write_bytes(pickle.dumps(make_triples(max(batch, *batch_sizes))))
+        for root in (other, here, here, other):
+            cmd = [sys.executable, str(HERE), "--worker", str(path), "--device-batch", str(batch),
+                   "--batch-sizes", *map(str, batch_sizes)]  # fmt: skip
+            subprocess.run(cmd, cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, check=True, timeout=900)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch-sizes", type=int, nargs="*", default=[64, 256, 1024, 4096])
     ap.add_argument("--device", nargs="?", const="cuda", default="cuda", choices=["cuda", "cpu"],
                     help="where the device rung runs: the card (default) or the plain version on the CPU")  # fmt: skip
     ap.add_argument("--device-batch", type=int, default=1024, help="device window size")
+    ap.add_argument("--against", type=pathlib.Path, help="another checkout of the port, timed in turns")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(_worker(args.worker, args.device_batch, tuple(args.batch_sizes))), flush=True)
+        return 0
+    if args.against is not None:
+        against(args.against, args.device_batch, tuple(args.batch_sizes))
+        print(_card(), flush=True)
+        return 0
     from p1_tpu_torch.core import keys
 
     keys.set_sig_backend("device", device=args.device)
@@ -224,12 +308,15 @@ def main(argv: list[str] | None = None) -> int:
     result["cpu_count"] = os.cpu_count()
     print(json.dumps(result), flush=True)
     if args.device == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip()  # fmt: skip
-        print(card, flush=True)
+        print(_card(), flush=True)
     return 0
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()  # fmt: skip
 
 
 if __name__ == "__main__":

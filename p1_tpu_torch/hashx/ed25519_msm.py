@@ -3,19 +3,23 @@
 The port of ``p1_tpu/hashx/ed25519_msm.py``.  It evaluates the same
 subgroup-gated batch equation as ``core/_ed25519.py::verify_batch`` —
 an exact prime-subgroup gate (``[q]·P == identity``) on every point plus
-one random-linear-combination multi-scalar multiplication — with the
-JAX package's division of labour, kept exactly:
+one random-linear-combination multi-scalar multiplication — but moves
+onto the card the two host stages that dwarf the device work in the JAX
+package's division of labour (one ~255-bit exponentiation per point in
+decompression, and the base-point term of the close):
 
 - **Host** (``prepare``): parse and range-check (a bad length, ``s ≥ q``
-  or an undecodable A or R returns False before anything reaches the
-  card), decompress, SHA-512 challenges, the 128-bit coefficients
-  ``z``, and pubkey dedup — one point and ONE merged scalar ``Σ z·k``
-  per unique key.
-- **Card** (``cuda_ed25519.gate_msm``, the kernels ``csrc/ed25519_msm.cu``):
+  or an A or R whose ``y ≥ p`` returns False before anything reaches the
+  card), SHA-512 challenges, the 128-bit coefficients ``z``, and pubkey
+  dedup — one point and ONE merged scalar ``Σ z·k`` per unique key.  The
+  points travel as their 32-byte encodings (eight uint32 words, the sign
+  of x in bit 255), and the base point joins the batch as one more point
+  with the scalar ``(q − Σ z·s) mod q``.
+- **Card** (``cuda_ed25519.decode_gate_msm``, the kernels
+  ``csrc/ed25519_msm.cu``): RFC 8032 §5.1.3 decompression of every point,
   the gate on every point and ``Σ sᵢ·Pᵢ``, read back as one all-ok flag
-  and one point.
-- **Host close** (``close``): the base-point term ``[q − s_total]·B`` and
-  the identity check.
+  and one point.  An encoding that does not decode clears the flag.
+- **Host close** (``close``): the flag and the identity test of the sum.
 
 Radix.  A field element is ten signed limbs of 26, 25, 26, ... bits
 (ref10's 25.5-bit radix), carried in int64 lanes: torch ``uint32`` has
@@ -25,20 +29,22 @@ doubled, wrapped columns folded by 19) and carries twice in parallel,
 leaving |limb| ≤ 2^25 (even) / 2^24 (odd) plus a few parts in 10^3.
 The point formulas feed ``fe_mul`` at most four such values summed, so a
 column stays under 2^61.  ``fe_canon`` reduces to the canonical value
-before every equality or identity test.  The kernel uses the same radix,
-the same carries and the same operation order, so the two agree limb for
-limb and a failing comparison points at one operation.
+before every equality or identity test.  The kernel uses the same radix
+(its products carry in ref10's order, to other representatives of the
+same values).  Decoded points are canonical in both (X, Y and T = XY
+reduced, Z = 1), so they agree limb for limb; the sums agree in value.
 
-The plain PyTorch version (``plain_gate_msm``) is fe25519 and point
-arithmetic on tensors, batched over a leading axis: the CPU tests and
-``device="cpu"`` use it, and nothing on the card's path does.  Both
-compute every point's windowed scalar multiplication the same way: a
-16-entry table ``[0..15]·P`` built by repeated ``ge_add``, then 64
-windows of four doublings and one table add, most significant first.
-The gate runs q's windows, the MSM each point's own scalar's.
+The plain PyTorch version (``plain_decode_gate_msm``) is fe25519 and
+point arithmetic on tensors, batched over a leading axis: the CPU tests
+and ``device="cpu"`` use it, and nothing on the card's path does.  It
+runs the reference's program: batched decompression (``decompress``), one
+16-entry table ``[0..15]·P`` per point (``point_table``), the gate by 64
+windows of q (``scalar_mul_windows``), and the MSM as Horner over
+windows with a tree sum of the batch's table rows per window
+(``msm_horner``, the JAX package's ``_msm_tree``).
 
 Padding: the JAX package pads the points to a power of two per device
-for its tree.  The port does not pad: the kernel's sum takes any count.
+for its tree.  The port does not pad: both sums take any count.
 
 Semantics are the pure-Python batch's exactly — ``verify_batch_device``
 accepts iff ``_ed25519.verify_batch`` would (2⁻¹²⁸ coefficients aside),
@@ -93,7 +99,9 @@ class _Consts:
     half: torch.Tensor  # (10,) 2**(bits-1), the rounding of a carry
     factor: torch.Tensor  # (10, 10) 2 for odd×odd, ×19 where i+j wraps
     column: torch.Tensor  # (10, 10) index j = (k - i) mod 10 of column k's term i
+    d: torch.Tensor  # (10,) d mod p
     d2: torch.Tensor  # (10,) 2·d mod p
+    sqrt_m1: torch.Tensor  # (10,) √−1 mod p
 
 
 @functools.lru_cache(maxsize=8)
@@ -108,7 +116,9 @@ def _consts(device: torch.device) -> _Consts:
         half=torch.tensor(1 << (bits - 1), dtype=torch.int64, device=device),
         factor=torch.tensor(factor, dtype=torch.int64, device=device),
         column=torch.tensor(column, dtype=torch.int64, device=device),
+        d=torch.tensor(fe_from_int(_py._D), dtype=torch.int64, device=device),
         d2=torch.tensor(fe_from_int(2 * _py._D), dtype=torch.int64, device=device),
+        sqrt_m1=torch.tensor(fe_from_int(_py._SQRT_M1), dtype=torch.int64, device=device),
     )
 
 
@@ -226,25 +236,41 @@ def ge_is_identity(p: torch.Tensor) -> torch.Tensor:
 
 def point_table(points: torch.Tensor) -> torch.Tensor:
     """Each point's window table [0]P..[15]P: (N, 16, 4, FE_LIMBS), built
-    by repeated ``ge_add`` as the kernel builds it."""
+    by repeated ``ge_add`` (the JAX package's ``_point_table``)."""
     rows = [ge_identity(points.shape[:-2], points.device), points]
     for _ in range(14):
         rows.append(ge_add(rows[-1], points))
     return torch.stack(rows, dim=1)
 
 
-def scalar_mul_windows(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """``digits[i]``'s scalar times ``points[i]`` for every row: 64
-    windows, most significant first, of four doublings and one table add
-    (the identity for a zero digit)."""
-    n = points.shape[0]
-    table = point_table(points)
-    acc = ge_identity((n,), points.device)
+def _rows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """``table[i, digits[i]]`` for every point i: (N, 4, FE_LIMBS)."""
+    n = table.shape[0]
+    idx = digits.view(n, 1, 1, 1).expand(n, 1, 4, FE_LIMBS)
+    return torch.gather(table, 1, idx).squeeze(1)
+
+
+def scalar_mul_windows(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """``digits[i]``'s scalar times point i for every row of its window
+    ``table``: 64 windows, most significant first, of four doublings and
+    one table add (the identity for a zero digit)."""
+    acc = ge_identity((table.shape[0],), table.device)
     for w in range(digits.shape[1]):
         for _ in range(4):
             acc = ge_double(acc)
-        idx = digits[:, w].view(n, 1, 1, 1).expand(n, 1, 4, FE_LIMBS)
-        acc = ge_add(acc, torch.gather(table, 1, idx).squeeze(1))
+        acc = ge_add(acc, _rows(table, digits[:, w]))
+    return acc
+
+
+def msm_horner(table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Σ sᵢ·Pᵢ as the JAX package's ``_msm_tree``: per window (most
+    significant first) four doublings of one accumulator, then the tree
+    sum of every point's table row for its digit.  ``digits``: (N, W)."""
+    acc = ge_identity((), table.device)
+    for w in range(digits.shape[1]):
+        for _ in range(4):
+            acc = ge_double(acc)
+        acc = ge_add(acc, tree_sum(_rows(table, digits[:, w])))
     return acc
 
 
@@ -268,34 +294,111 @@ def tree_sum(points: torch.Tensor) -> torch.Tensor:
     return points[0]
 
 
+# --------------------------------------------------------- decompression --
+
+
+def limbs_of_words(words: torch.Tensor) -> torch.Tensor:
+    """(N, 8) little-endian uint32 words (int64 lanes) -> (N, 10) limbs of
+    the value's bits 0..254 (bit 255, the sign of x, left out)."""
+    cols = []
+    for o, b in zip(LIMB_OFFSETS, LIMB_BITS):
+        word, shift = divmod(o, 32)
+        v = words[:, word] >> shift
+        if shift + b > 32:
+            v = v | (words[:, word + 1] << (32 - shift))
+        cols.append(v & ((1 << b) - 1))
+    return torch.stack(cols, dim=-1)
+
+
+def _sq_times(f: torch.Tensor, n: int) -> torch.Tensor:
+    for _ in range(n):
+        f = fe_sq(f)
+    return f
+
+
+def fe_pow22523(z: torch.Tensor) -> torch.Tensor:
+    """z^((p−5)/8) = z^(2^252 − 3) by ref10's chain: 251 squarings and 11
+    products, each power of the form z^(2^k − 1) built from smaller ones."""
+    t0 = fe_sq(z)  # 2
+    t1 = fe_mul(z, _sq_times(t0, 2))  # 9
+    t0 = fe_mul(t0, t1)  # 11
+    t0 = fe_mul(t1, fe_sq(t0))  # 31 = 2^5 - 1
+    t0 = fe_mul(_sq_times(t0, 5), t0)  # 2^10 - 1
+    t1 = fe_mul(_sq_times(t0, 10), t0)  # 2^20 - 1
+    t1 = fe_mul(_sq_times(t1, 20), t1)  # 2^40 - 1
+    t0 = fe_mul(_sq_times(t1, 10), t0)  # 2^50 - 1
+    t1 = fe_mul(_sq_times(t0, 50), t0)  # 2^100 - 1
+    t1 = fe_mul(_sq_times(t1, 100), t1)  # 2^200 - 1
+    t0 = fe_mul(_sq_times(t1, 50), t0)  # 2^250 - 1
+    return fe_mul(_sq_times(t0, 2), z)  # 2^252 - 3
+
+
+def decompress(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """RFC 8032 §5.1.3 on (N, 8) encoding words (int64 lanes), as
+    ``core/_ed25519.py::_pt_decompress``: x = u·v³·(u·v⁷)^((p−5)/8) for
+    u = y² − 1, v = d·y² + 1; v·x² = u keeps x, v·x² = −u takes x·√−1,
+    anything else (or y ≥ p, or x = 0 with the sign set) does not decode;
+    x flips to p − x where its canonical parity is not the sign.  Returns
+    the (N, 4, 10) points, canonical (X, Y, 1, X·Y), the identity where
+    an encoding does not decode, and the (N,) bool ``decodes``."""
+    k = _consts(words.device)
+    y = limbs_of_words(words)
+    sign = words[:, 7] >> 31
+    one = torch.zeros_like(y)
+    one[:, 0] = 1
+    ok = torch.all(fe_canon(y) == y, dim=-1)  # y < p
+    y2 = fe_sq(y)
+    u = fe_sub(y2, one)
+    v = fe_add(fe_mul(y2, k.d), one)
+    v3 = fe_mul(fe_sq(v), v)
+    uv3 = fe_mul(u, v3)
+    x = fe_mul(uv3, fe_pow22523(fe_mul(fe_mul(uv3, v3), v)))
+    vx2 = fe_mul(v, fe_sq(x))
+    root = fe_is_zero(fe_sub(vx2, u))
+    ok &= root | fe_is_zero(fe_add(vx2, u))
+    x = fe_canon(torch.where(root[:, None], x, fe_mul(x, k.sqrt_m1)))
+    ok &= ~(torch.all(x == 0, dim=-1) & (sign == 1))
+    x = torch.where(((x[:, 0] & 1) != sign)[:, None], fe_canon(-x), x)
+    points = torch.stack([x, y, one, fe_canon(fe_mul(x, y))], dim=-2)
+    ident = ge_identity((words.shape[0],), words.device)
+    return torch.where(ok[:, None, None], points, ident), ok
+
+
 @dataclasses.dataclass(frozen=True)
-class GateMsm:
+class DecodeGateMsm:
     """What the device stage returns, on the inputs' device.
 
     ``result`` is the kernel's one read-back: int32 [all-ok, X, Y, Z, T]
-    (1 + 4·10).  ``products`` (N, 4, 10) holds every sᵢ·Pᵢ and ``flags``
-    (N,) every gate verdict (1: [q]·Pᵢ is the identity); they stay on
-    the device unless a check reads them."""
+    (1 + 4·10), all-ok 1 iff every point decodes and passes the gate.
+    ``decoded`` (N, 4, 10) holds every decoded point (canonical; the
+    identity where it does not decode) and ``flags`` (N,) every point's
+    bits: 1 it decodes, 2 [q]·Pᵢ is the identity.  They stay on the
+    device unless a check reads them."""
 
     result: torch.Tensor
-    products: torch.Tensor
+    decoded: torch.Tensor
     flags: torch.Tensor
 
 
-def plain_gate_msm(points: torch.Tensor, scalars: torch.Tensor) -> GateMsm:
-    """The plain PyTorch version of the kernel on ``points`` ((N, 4, 10)
-    int32 limbs) and ``scalars`` ((N, 8) int32 words), on their device."""
-    n = points.shape[0]
-    pts = points.to(torch.int64)
-    words = scalars.to(torch.int64) & 0xFFFFFFFF
-    q_words = torch.tensor(Q_WORDS, dtype=torch.int64, device=points.device).expand(n, -1)
-    both = scalar_mul_windows(torch.cat([pts, pts]), digits_of_words(torch.cat([q_words, words])))
-    flags = ge_is_identity(both[:n])
-    products = both[n:]
-    total = tree_sum(products)
-    ok = torch.all(flags).to(torch.int64).reshape(1)
+#: A point's flags when it decodes and passes the gate.
+FLAGS_OK = 3
+
+
+def plain_decode_gate_msm(encodings: torch.Tensor, scalars: torch.Tensor) -> DecodeGateMsm:
+    """The plain PyTorch version of the kernels on ``encodings`` ((N, 8)
+    int32 words of the 32-byte point encodings) and ``scalars`` ((N, 8)
+    int32 words), on their device: decompression, one table per point,
+    the gate by q's windows, Horner over windows."""
+    n = encodings.shape[0]
+    points, decodes = decompress(encodings.to(torch.int64) & 0xFFFFFFFF)
+    table = point_table(points)
+    q_words = torch.tensor(Q_WORDS, dtype=torch.int64, device=encodings.device).expand(n, -1)
+    gate = ge_is_identity(scalar_mul_windows(table, digits_of_words(q_words)))
+    total = msm_horner(table, digits_of_words(scalars.to(torch.int64) & 0xFFFFFFFF))
+    flags = decodes.to(torch.int32) | (gate.to(torch.int32) << 1)
+    ok = torch.all(flags == FLAGS_OK).to(torch.int64).reshape(1)
     result = torch.cat([ok, total.reshape(-1)]).to(torch.int32)
-    return GateMsm(result, products.to(torch.int32), flags.to(torch.int32))
+    return DecodeGateMsm(result, points.to(torch.int32), flags)
 
 
 # ------------------------------------------------------ host encodings --
@@ -319,6 +422,12 @@ def encode_scalars(scalars) -> np.ndarray:
     """Integers in [0, 2^256) -> (N, 8) little-endian uint32 words."""
     raw = b"".join(s.to_bytes(32, "little") for s in scalars)
     return np.frombuffer(raw, dtype="<u4").reshape(len(scalars), SCALAR_WORDS).copy()
+
+
+def encode_encodings(raws) -> np.ndarray:
+    """32-byte point encodings -> (N, 8) little-endian uint32 words."""
+    raw = b"".join(raws)
+    return np.frombuffer(raw, dtype="<u4").reshape(len(raw) // 32, SCALAR_WORDS).copy()
 
 
 def decode_point(limbs) -> tuple:
@@ -355,29 +464,38 @@ def to_reference_point(limbs) -> np.ndarray:
 # ------------------------------------------------- the batch verifier --
 
 
+#: The base point's encoding: it joins every batch as its last point.
+B_ENC = _py._pt_compress(_py._B)
+
+
 @dataclasses.dataclass
 class Prepared:
-    """The host's half of one batch, ready for the card: every unique A
-    and every R (``points``, (N, 4, 10) int32), their MSM scalars
-    (``scalars``, (N, 8) uint32 words), and the base point's coefficient
-    Σ zᵢ·sᵢ mod q (``s_total``)."""
+    """The host's half of one batch, ready for the card: the encodings of
+    every unique A, every R and last the base point B (``encodings``,
+    (N, 8) uint32 words), and their MSM scalars (``scalars``, (N, 8)
+    uint32 words; B's is (q − Σ zᵢ·sᵢ) mod q)."""
 
-    points: np.ndarray
+    encodings: np.ndarray
     scalars: np.ndarray
-    s_total: int
+
+
+def _y_in_range(encoding: bytes) -> bool:
+    """The cheap first check of RFC 8032 §5.1.3: y < p."""
+    return int.from_bytes(encoding, "little") & ((1 << 255) - 1) < _py._P
 
 
 def prepare(triples, rng=None) -> Prepared | None:
-    """Parse, range-check, decompress, hash and combine on the host; None
-    where the batch fails before any device work (bad length, s ≥ q,
-    undecodable A or R).  Coefficients are ``secrets.randbits(128) | 1``
-    — unpredictable, which the batch's soundness needs — unless ``rng``
-    (a ``random.Random``) is given, which tests pass so that the kernel
-    and the plain version see the same scalars."""
+    """Parse, range-check, hash and combine on the host; None where the
+    batch fails before any device work (bad length, s ≥ q, an A or R
+    with y ≥ p).  Decompression is the card's.  Coefficients are
+    ``secrets.randbits(128) | 1`` — unpredictable, which the batch's
+    soundness needs — unless ``rng`` (a ``random.Random``) is given,
+    which tests pass so that the kernel and the plain version see the
+    same scalars."""
     draw = secrets.randbits if rng is None else rng.getrandbits
-    points = []  # decompressed (x, y, z, t) int tuples
+    encodings = []  # 32-byte point encodings
     scalars = []  # matching MSM coefficients
-    a_slots: dict[bytes, int] = {}  # pubkey -> index into points
+    a_slots: dict[bytes, int] = {}  # pubkey -> index into encodings
     s_total = 0
     for pubkey, sig, message in triples:
         if len(pubkey) != 32 or len(sig) != 64:
@@ -386,28 +504,29 @@ def prepare(triples, rng=None) -> Prepared | None:
         if s >= _py._Q:
             return None
         pubkey = bytes(pubkey)
+        r_enc = bytes(sig[:32])
         slot = a_slots.get(pubkey)
         if slot is None:
-            a_pt = _py._pt_decompress(pubkey)
-            if a_pt is None:
+            if not _y_in_range(pubkey):
                 return None
-            slot = len(points)
+            slot = len(encodings)
             a_slots[pubkey] = slot
-            points.append(a_pt)
+            encodings.append(pubkey)
             scalars.append(0)
-        r_pt = _py._pt_decompress(sig[:32])
-        if r_pt is None:
+        if not _y_in_range(r_enc):
             return None
-        k = int.from_bytes(_py._sha512(sig[:32] + pubkey + message), "little") % _py._Q
+        k = int.from_bytes(_py._sha512(r_enc + pubkey + message), "little") % _py._Q
         z = draw(128) | 1
         s_total = (s_total + z * s) % _py._Q
         # The mod-q merges are exact only because the device gate PROVES
         # every point has order q before the sum is trusted (the same
         # gate-first contract as every other backend).
         scalars[slot] = (scalars[slot] + z * k) % _py._Q
-        points.append(r_pt)
+        encodings.append(r_enc)
         scalars.append(z)
-    return Prepared(encode_points(points), encode_scalars(scalars), s_total)
+    encodings.append(B_ENC)
+    scalars.append((_py._Q - s_total) % _py._Q)
+    return Prepared(encode_encodings(encodings), encode_scalars(scalars))
 
 
 def resolve_device(device) -> torch.device:
@@ -426,27 +545,26 @@ def resolve_device(device) -> torch.device:
 
 
 def to_device(prep: Prepared, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The batch's points and scalar words as int32 tensors on ``device``."""
-    points = torch.from_numpy(prep.points).to(device)
+    """The batch's encoding and scalar words as int32 tensors on ``device``."""
+    encodings = torch.from_numpy(prep.encodings.view(np.int32)).to(device)
     scalars = torch.from_numpy(prep.scalars.view(np.int32)).to(device)
-    return points, scalars
+    return encodings, scalars
 
 
-def close(result, s_total: int) -> bool:
+def close(result) -> bool:
     """The host's close on the read-back ``result`` (int32 [all-ok, X, Y,
-    Z, T]): every point gated, then Σ sᵢ·Pᵢ + [q − s_total]·B must be
-    the identity."""
+    Z, T]): every point decoded and gated, and Σ sᵢ·Pᵢ, the base-point
+    term among them, is the identity."""
     result = np.asarray(result)
-    if not result[0]:
+    if result[0] != 1:
         return False
-    acc = decode_point(result[1:])
-    if s_total:
-        acc = _py._pt_add(acc, _py._pt_mul(_py._Q - s_total, _py._B))
-    return _py._pt_equal(acc, _py._IDENT)
+    x, y, z, _ = decode_point(result[1:])
+    return x == 0 and y == z
 
 
 def verify_batch_device(triples, device=None, rng=None) -> bool:
-    """``_ed25519.verify_batch`` with the gate and the MSM on the card.
+    """``_ed25519.verify_batch`` with decompression, the gate and the MSM
+    on the card.
 
     ``device`` is where the device stage runs: the card (None or "cuda",
     the default; raises without one) or "cpu" (the plain PyTorch
@@ -463,5 +581,5 @@ def verify_batch_device(triples, device=None, rng=None) -> bool:
     prep = prepare(triples, rng)
     if prep is None:
         return False
-    out = cuda_ed25519.gate_msm(*to_device(prep, dev))
-    return close(out.result.cpu().numpy(), prep.s_total)
+    out = cuda_ed25519.decode_gate_msm(*to_device(prep, dev))
+    return close(out.result.cpu().numpy())

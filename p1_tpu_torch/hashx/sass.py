@@ -143,22 +143,3 @@ def opcode_histogram(insns: list[Insn]) -> dict[str, int]:
     """Instructions by base opcode (``SHF.R.W.U32.HI`` counts as ``SHF``)."""
     return dict(collections.Counter(i.opcode.split(".")[0] for i in insns).most_common())
 
-
-def nested_counts(insns: list[Insn], trips: list[int]) -> tuple[int, int, int]:
-    """(all, integer-ALU, FMA-pipe) instructions one thread executes in a
-    function whose loops, in ``loop_ranges`` order, run ``trips[k]`` times
-    each time they are entered; an instruction counts once per trip of
-    every loop around it (nested loops multiply)."""
-    ranges = loop_ranges(insns)
-    if len(ranges) != len(trips):
-        raise RuntimeError(f"expected {len(trips)} loops, found {len(ranges)}: {ranges}")
-    total = alu = fma = 0
-    for i in insns:
-        weight = 1
-        for (start, end), n in zip(ranges, trips):
-            if start <= i.address <= end:
-                weight *= n
-        total += weight
-        alu += weight * is_alu(i.opcode)
-        fma += weight * is_fma(i.opcode)
-    return total, alu, fma

@@ -124,15 +124,26 @@ def test_ed25519_library_hash_follows_its_source(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "points,blocks", [(1, 1), (16, 1), (17, 2), (1032, 65), (4104, 257), ((1 << 30) - 1, 1 << 26)]
+    "points,blocks",
+    [(1, 1), (8, 1), (9, 2), (1032, 129), (1033, 130), (4105, 514), ((1 << 30) - 1, 1 << 27)],
 )
-def test_ed25519_geometry_covers_every_point_and_role_once(points, blocks):
+def test_ed25519_geometry_covers_every_point_once(points, blocks):
     from p1_tpu_torch.hashx import cuda_ed25519
 
     got = cuda_ed25519.blocks_for(points)
     assert got == blocks
-    threads = cuda_ed25519.THREADS
-    assert got * threads >= 2 * points > (got - 1) * threads
+    per_block = cuda_ed25519.POINTS_PER_BLOCK
+    assert got * per_block >= points > (got - 1) * per_block
+
+
+def test_ed25519_geometry_fills_the_card_at_a_chunk():
+    # A 1,024-signature chunk of eight keys (1,033 points with the base
+    # point) gives about one block per SM of the H100's 132, each of more
+    # than one warp.
+    from p1_tpu_torch.hashx import cuda_ed25519
+
+    assert 120 <= cuda_ed25519.blocks_for(1024 + 8 + 1) <= 132
+    assert cuda_ed25519.THREADS > 32 and cuda_ed25519.THREADS % 32 == 0
 
 
 @pytest.mark.parametrize("points", [0, -1, 1 << 30])
@@ -143,19 +154,36 @@ def test_ed25519_geometry_refuses(points):
         cuda_ed25519.blocks_for(points)
 
 
-def test_ed25519_constants_in_the_source_match_the_radix():
-    # The kernel hard-codes 2d mod p in the radix and q's words; they must
-    # be the plain version's.
+def _constant(text, name):
+    import re
+
+    body = re.search(name + r"\[[^]]*\] = \{([^}]*)\}", text).group(1)
+    return [int(v.strip().rstrip("u"), 0) for v in body.split(",")]
+
+
+@pytest.mark.parametrize("name,value", [("kD", "d"), ("kD2", "2d"), ("kSqrtM1", "sqrt(-1)")])
+def test_ed25519_constants_in_the_source_match_the_radix(name, value):
+    # The kernel hard-codes d, 2d and sqrt(-1) mod p in the radix; they
+    # must be the plain version's.
+    from p1_tpu_torch.hashx import cuda_ed25519, ed25519_msm
+
+    py = ed25519_msm._py
+    want = {"d": py._D, "2d": 2 * py._D, "sqrt(-1)": py._SQRT_M1}[value]
+    text = (kernel_build.CSRC / cuda_ed25519.Ed25519Kernel.SOURCE).read_text()
+    assert _constant(text, name) == ed25519_msm.fe_from_int(want).tolist()
+
+
+def test_ed25519_q_and_geometry_in_the_source_match_the_wrapper():
     import re
 
     from p1_tpu_torch.hashx import cuda_ed25519, ed25519_msm
 
     text = (kernel_build.CSRC / cuda_ed25519.Ed25519Kernel.SOURCE).read_text()
-    d2 = re.search(r"kD2\[kLimbs\] = \{([^}]*)\}", text).group(1)
-    assert [int(v) for v in d2.split(",")] == ed25519_msm.fe_from_int(2 * ed25519_msm._py._D).tolist()
-    q = re.search(r"kQWords\[8\] = \{([^}]*)\}", text).group(1)
-    assert [int(v.strip().rstrip("u"), 0) for v in q.split(",")] == list(ed25519_msm.Q_WORDS)
-    assert f"kGateThreads = {cuda_ed25519.THREADS};" in text
+    assert _constant(text, "kQWords") == list(ed25519_msm.Q_WORDS)
+    assert f"kPointsPerBlock = {cuda_ed25519.POINTS_PER_BLOCK};" in text
+    msm_warps = int(re.search(r"kMsmWarps = (\d+);", text).group(1))
+    assert "kThreads = 32 * (1 + kMsmWarps);" in text and 32 * (1 + msm_warps) == cuda_ed25519.THREADS
+    assert f"kFlagsOk = {ed25519_msm.FLAGS_OK};" in text
 
 
 def test_ed25519_wrapper_refuses_cpu_tensors_without_building():
@@ -164,40 +192,45 @@ def test_ed25519_wrapper_refuses_cpu_tensors_without_building():
     from p1_tpu_torch.hashx import cuda_ed25519
 
     kernel = cuda_ed25519.Ed25519Kernel()
-    pts = torch.zeros((3, 4, 10), dtype=torch.int32)
+    words = torch.zeros((3, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32 CUDA tensor"):
-        kernel(pts, torch.zeros((3, 8), dtype=torch.int32), pts.clone(),
-               torch.zeros(3, dtype=torch.int32), torch.zeros(41, dtype=torch.int32))  # fmt: skip
+        kernel(words, words.clone(), torch.zeros((3, 4, 10), dtype=torch.int32), torch.zeros(3, dtype=torch.int32),
+               torch.zeros((1, 4, 10), dtype=torch.int32), torch.zeros(41, dtype=torch.int32))  # fmt: skip
     assert kernel._built is None and kernel.launches == 0
 
 
-NESTED = """
-\t\tFunction : _ZN4gate_smul_kernelEv
-        /*0000*/                   IMAD R1, R2, R3, R4 ;
-        /*0010*/                   IADD3 R1, R2, R3, RZ ;
-        /*0020*/                   IMAD.WIDE R4, R2, R3, R4 ;
-        /*0030*/               @P0 BRA 0x10 ;
-        /*0040*/                   LOP3.LUT R2, R2, R4, R5, 0x96, !PT ;
-        /*0050*/                   IMAD.WIDE R4, R2, R3, R4 ;
-        /*0060*/                   SHF.R.S64 R2, R3, 0x7, R3 ;
-        /*0070*/               @P1 BRA 0x50 ;
-        /*0080*/               @P2 BRA 0x40 ;
-        /*0090*/                   EXIT ;
-        /*00a0*/                   BRA 0xa0;
-"""
+@pytest.mark.parametrize("scalar", ["q", "q_words"])
+def test_ed25519_gate_work_follows_the_digits_of_q(scalar):
+    # The gate adds one table row per non-zero digit of q and doubles four
+    # times per window below its top non-zero digit (the doublings before
+    # it would act on the identity); chip_smoke.py counts the same digits as
+    # the kernel's kQWords and the plain version's Q_WORDS.
+    import torch
+
+    import chip_smoke
+    from p1_tpu_torch.hashx import ed25519_msm
+
+    if scalar == "q":
+        digits = [(ed25519_msm._py._Q >> (4 * w)) & 15 for w in range(64)]
+    else:
+        digits = ed25519_msm.digits_of_words(torch.tensor([ed25519_msm.Q_WORDS]))[0].tolist()[::-1]
+    assert tuple(digits) == chip_smoke.ED_Q_DIGITS
+    assert (chip_smoke.ED_GATE_ADDS, chip_smoke.ED_GATE_DOUBLES) == (33, 252)
+    assert sum(d == 0 for d in digits) == 31 and digits[63] == 1
 
 
-def test_nested_counts_multiply_nested_trips():
-    insns = sass.function_insns(NESTED, "gate_smul_kernel")
-    assert sass.loop_ranges(insns) == [(0x10, 0x30), (0x40, 0x80), (0x50, 0x70)]
-    # Outside loops: IMAD, EXIT, BRA (3); loop 1 x14: IADD3, IMAD.WIDE, BRA;
-    # loop 2 x64: LOP3, BRA; its inner loop x64x4: IMAD.WIDE, SHF, BRA.
-    total, alu, fma = sass.nested_counts(insns, [14, 64, 4])
-    assert total == 3 + 14 * 3 + 64 * 2 + 256 * 3
-    assert alu == 14 * 1 + 64 * 1 + 256 * 1
-    assert fma == 1 + 14 * 1 + 256 * 1
-    with pytest.raises(RuntimeError, match="expected 2 loops"):
-        sass.nested_counts(insns, [14, 64])
+def test_ed25519_pinned_work_is_the_reference_operation_count():
+    # chip_smoke.py's bound for the 1,024-signature chunk (1,033 points):
+    # the derivation written beside its constants.
+    import chip_smoke
+
+    per_point = chip_smoke.ed25519_work(1, chip_smoke.ED_OP_ALU_FMA)
+    batch = chip_smoke.ed25519_work(0, chip_smoke.ED_OP_ALU_FMA)
+    assert batch == (270_945, 195_480)
+    assert (per_point[0] - batch[0], per_point[1] - batch[1]) == (442_545, 337_890)
+    assert chip_smoke.ed25519_work(1033, chip_smoke.ED_OP_ALU_FMA) == (457_419_930, 349_235_850)
+    assert chip_smoke.ED_OPS_PER_POINT == {"add": 14 + 33 + 64, "double": 252, "square": 251 + 3, "product": 11 + 9}
+    assert chip_smoke.ED_OPS_PER_BATCH == {"add": 63 - 64, "double": 252, "square": 0, "product": 0}
 
 
 @pytest.mark.parametrize("opcode,fma", [("IMAD.WIDE", True), ("IMAD.WIDE.U32", True), ("VIADD", True),

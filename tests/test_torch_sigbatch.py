@@ -326,8 +326,8 @@ class TestStats:
 
     def test_device_chunks_are_launch_units(self, monkeypatch):
         calls = []
-        real = cuda_ed25519.gate_msm
-        monkeypatch.setattr(cuda_ed25519, "gate_msm", lambda p, s: calls.append(len(p)) or real(p, s))
+        real = cuda_ed25519.decode_gate_msm
+        monkeypatch.setattr(cuda_ed25519, "decode_gate_msm", lambda p, s: calls.append(len(p)) or real(p, s))
         monkeypatch.setattr(keys, "BATCH_CHUNK", 8)
         keys.set_sig_backend("device", device="cpu")
         tr = _triples(20, salt="chunks")
