@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths, ``mine``, ``replay`` and signature validation
-(``check_block`` under the ``device`` rung), on the GPU in phases, one JSON
+Drives the port's paths, ``mine``, ``replay``, signature validation
+(``check_block`` under the ``device`` rung) and the untrusted load of a
+chain store, on the GPU in phases, one JSON
 line each, and fails (non-zero exit, no last line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
@@ -71,6 +72,21 @@ line each, and fails (non-zero exit, no last line) if any phase fails:
    and ``preverify_signatures`` on a 4,096-signature window (four
    launches); the block with one bad signature raises ``ValidationError
    ("bad transaction signature")``.
+10. revalidate — the store path whose launches are counted: a store of
+   520 blocks and 4,152 signed transfers (``host_ingest.build_blocks(520,
+   8, difficulty=1)``, ``save_chain``) loaded untrusted through
+   ``ChainStore.load_chain(trusted=False)`` on the default rung: one full
+   4,096-signature window (four launches) and a 56-signature tail (one),
+   5 launches and 4,152 device signatures; the tip, height, balances and
+   every nonce equal to the built chain's and a trusted load's; wall times
+   (median of three) of the untrusted load (blocks/s, µs per signature),
+   of a load with the cache warm and of the trusted load; the
+   ``balances`` command on the store through ``cli.main`` (its launches
+   counted: 5 again) and as
+   ``python -m p1_tpu_torch balances`` (exit 0, the same JSON); one
+   signature flipped in the record at height 300 with its CRC fixed: the
+   untrusted load stops at height 299, as the serial pure-Python lane's
+   load does.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -105,6 +121,9 @@ SIG_BATCH = 1024  # keys.BATCH_CHUNK: one device launch
 BLOCK_TXS = 1000  # config.max_block_txs: a coinbase and 999 transfers
 PREVERIFY_N = 4096  # chain/validate.py PREVERIFY_WINDOW
 SIG_DIFFICULTY = 8  # the check_block fixture chain
+REVAL_BLOCKS = 520  # the revalidated store: 519 blocks of 8 transfers
+REVAL_TXS = 8
+TAMPER_HEIGHT = 300  # the record whose signature is flipped
 #: q = 2^252 + 27742317777372353535851937790883648493 in 4-bit digits,
 #: least significant first: the gate's scalar, the same for every point.
 ED_Q_DIGITS = tuple(((2**252 + 27742317777372353535851937790883648493) >> (4 * w)) & 15 for w in range(64))
@@ -856,6 +875,124 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
     }  # fmt: skip
 
 
+def phase_revalidate(kernel) -> dict:
+    """Phase 10: the untrusted load of a chain store on the default
+    signature rung, its launches counted around the loads only (the
+    build's ``add_block`` calls launch too).  Returns the phase's counts
+    and times for the ``kernels`` line."""
+    import struct
+    import zlib
+
+    from p1_tpu_torch import cli
+    from p1_tpu_torch.benchmarks.host_ingest import build_blocks
+    from p1_tpu_torch.chain import ChainStore, save_chain
+    from p1_tpu_torch.chain import store as store_mod
+    from p1_tpu_torch.core import keys, sigcache
+    from p1_tpu_torch.core.sigcache import SignatureCache
+
+    keys.set_sig_backend(None)  # the default rung: the card's
+    t0 = time.perf_counter()
+    built, _ = build_blocks(REVAL_BLOCKS, REVAL_TXS, difficulty=1)
+    build_s = time.perf_counter() - t0
+    signatures = (REVAL_BLOCKS - 1) * REVAL_TXS
+    accounts = sorted({a for b in built.main_chain() for t in b.txs for a in (t.sender, t.recipient)})
+
+    def state(chain):
+        return (chain.tip_hash, chain.height, chain.balances_snapshot(), [chain.nonce(a) for a in accounts])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "revalidate.chain"
+        save_chain(built, path)
+
+        def load(**kwargs):
+            store = ChainStore(path)
+            try:
+                t1 = time.perf_counter()
+                chain = store.load_chain(1, **kwargs)
+                return chain, time.perf_counter() - t1
+            finally:
+                store.close()
+
+        cache = SignatureCache()
+        keys.STATS.reset()
+        kernel.launches = 0
+        untrusted, untrusted_s = load(trusted=False, sig_cache=cache)
+        launches, device_sigs = kernel.launches, keys.STATS.backends["device"]
+        want_launches = -(-PREVERIFY_N // keys.BATCH_CHUNK) + 1
+        if (launches, device_sigs) != (want_launches, signatures):
+            raise AssertionError(f"untrusted load: {launches} launches, {device_sigs} device signatures; "
+                                 f"want {want_launches} and {signatures}")  # fmt: skip
+        # Two more of each load for the times (median of three).
+        untrusted_runs = [untrusted_s] + [load(trusted=False, sig_cache=SignatureCache())[1] for _ in range(2)]
+        kernel.launches = 0
+        warm, _ = load(trusted=False, sig_cache=cache)
+        warm_runs = [load(trusted=False, sig_cache=cache)[1] for _ in range(3)]
+        warm_launches = kernel.launches
+        trusted, _ = load(trusted=True)
+        trusted_runs = [load(trusted=True)[1] for _ in range(3)]
+        if warm_launches or not state(untrusted) == state(warm) == state(trusted) == state(built):
+            raise AssertionError(f"loads disagree with the built chain (warm loads launched {warm_launches})")
+        untrusted_s = statistics.median(untrusted_runs)
+
+        # The balances command: in this process through cli.main, with the
+        # process's cache emptied as a new process starts, so its launches
+        # count; then as a new process.
+        old_default = sigcache.DEFAULT
+        sigcache.DEFAULT = SignatureCache()
+        out = io.StringIO()
+        kernel.launches = 0
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["balances", "--store", str(path)])
+        finally:
+            sigcache.DEFAULT = old_default
+            keys.set_sig_backend(None)
+        cli_launches = kernel.launches
+        report = json.loads(out.getvalue().strip().splitlines()[-1])
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "p1_tpu_torch", "balances", "--store", str(path)],
+                              capture_output=True, text=True, timeout=300)  # fmt: skip
+        cli_process_s = time.perf_counter() - t1
+        if proc.returncode != 0:
+            raise AssertionError(f"balances exited {proc.returncode}: {proc.stderr[-2000:]}")
+        want_report = {"config": "balances", "height": built.height, "conserved": True,
+                       "balances": dict(sorted(built.balances_snapshot().items()))}  # fmt: skip
+        if (rc, cli_launches, report) != (0, want_launches, want_report) or json.loads(proc.stdout) != report:
+            raise AssertionError(f"balances: exit {rc}, {cli_launches} launches, {report}, {proc.stdout!r}")
+
+        # A hostile editor: one signature flipped in the record at height
+        # TAMPER_HEIGHT, the record's CRC fixed so that validation, not the
+        # storage layer, must catch it.
+        raw = bytearray(path.read_bytes())
+        off, length = ChainStore.scan(bytes(raw)).spans[TAMPER_HEIGHT]
+        victim = built.get(built.main_hash_at(TAMPER_HEIGHT))
+        raw[raw.find(victim.txs[1].sig, off)] ^= 1
+        struct.pack_into(">I", raw, off + length, zlib.crc32(raw[off - 4 : off + length]))
+        path.write_bytes(bytes(raw))
+        kernel.launches = 0
+        tampered, tampered_s = load(trusted=False, sig_cache=SignatureCache())
+        tampered_launches = kernel.launches
+        old = keys.BATCH_MIN, store_mod._preverify_stream
+        keys.BATCH_MIN, store_mod._preverify_stream = 1 << 30, lambda blocks, tag, cache: blocks
+        try:  # the serial lane: every transfer verified alone, pure Python
+            serial, serial_s = load(trusted=False, sig_cache=SignatureCache())
+        finally:
+            keys.BATCH_MIN, store_mod._preverify_stream = old
+        if not tampered.height == serial.height == TAMPER_HEIGHT - 1:
+            raise AssertionError(f"tampered store: device lane stops at {tampered.height}, serial at {serial.height}")
+    line = {"blocks": REVAL_BLOCKS, "signatures": signatures, "launches": launches,
+            "device_signatures": device_sigs, "build_s": build_s, "untrusted_s": untrusted_s,
+            "untrusted_runs_s": untrusted_runs, "blocks_per_s": REVAL_BLOCKS / untrusted_s,
+            "us_per_sig": 1e6 * untrusted_s / signatures, "warm_cache_s": statistics.median(warm_runs),
+            "warm_cache_runs_s": warm_runs, "trusted_s": statistics.median(trusted_runs),
+            "trusted_runs_s": trusted_runs, "cli_balances_launches": cli_launches,
+            "cli_process_s": cli_process_s, "tampered_height": tampered.height,
+            "tampered_launches": tampered_launches, "tampered_s": tampered_s,
+            "serial_height": serial.height, "serial_s": serial_s}  # fmt: skip
+    emit({"phase": "revalidate", **line})
+    return line
+
+
 def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
     """(ALU, FMA) instructions of the reference's operations on ``points``
     points and one batch, at ``per_op``'s (ALU, FMA) cost per operation."""
@@ -1019,6 +1156,13 @@ def main() -> int:
 
     # -- 7-9. Ed25519 signature validation on the card ----------------------
     ed25519 = phase_ed25519(sass, sms, peak)
+
+    # -- 10. the untrusted load of a chain store -----------------------------
+    revalidate = phase_revalidate(cuda_ed25519.ed25519_msm)
+    ed25519["launches_check_block"] = ed25519["launches"]
+    ed25519["launches_revalidate"] = revalidate["launches"]
+    ed25519["launches"] += revalidate["launches"]
+    ed25519["revalidate"] = {k: revalidate[k] for k in ("blocks", "signatures", "untrusted_s", "blocks_per_s", "us_per_sig")}
 
     print(json.dumps({"kernels": [
         {

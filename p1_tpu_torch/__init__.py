@@ -5,8 +5,8 @@ against.  It imports ``torch``, numpy and the standard library, never
 ``jax`` and never ``p1_tpu``: where it needs one of the reference's
 JAX-free modules it keeps its own copy under the same module path.
 
-It carries the mining, replay and signature-validation paths and the
-integer-ALU roofline:
+It carries the mining, replay and signature-validation paths, the chain
+state and its stores, and the integer-ALU roofline:
 
 - ``p1_tpu_torch.core``   — ``BlockHeader`` (the reference's 80-byte
   encoding), target math, the genesis header and block (fixed difficulty
@@ -23,11 +23,20 @@ integer-ALU roofline:
   counting (``hashx/sass.py``).
 - ``p1_tpu_torch.miner``  — ``Miner.search_nonce()``.
 - ``p1_tpu_torch.chain``  — header-chain generation and replay; block
-  validation (``check_block``, ``preverify_signatures``).
+  validation (``check_block``, ``preverify_signatures``); the block index
+  with fork choice and the account ledger (``Chain``), compact filters,
+  SPV proofs, ledger snapshots and state deltas; the stores
+  (``ChainStore``, ``SegmentedStore``, the header plane), whose untrusted
+  loads revalidate signature windows on the card; the offline store
+  tools (``tooling``) and disk-fault stores (``testing``).
+- ``p1_tpu_torch.node``   — ``testing.make_blocks`` (the node itself comes
+  with a later slice).
 - ``p1_tpu_torch.benchmarks`` — the integer-ALU roofline
   (``benchmarks/csrc/int_roofline.cu``), ``verify_chain``'s device time,
-  the signature-verification bench (``sig_verify``).
-- ``p1_tpu_torch.cli``    — ``python -m p1_tpu_torch mine|replay``.
+  the signature-verification bench (``sig_verify``, store revalidation
+  included) and the signed test chains it loads (``host_ingest``).
+- ``p1_tpu_torch.cli``    — ``python -m p1_tpu_torch
+  mine|sweep|replay|keygen|balances|compact|fsck|snapshot``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``); without a card they raise.

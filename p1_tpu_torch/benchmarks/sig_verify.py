@@ -1,7 +1,7 @@
 """Signature-verification microbench of the port: its rungs, one harness.
 
     python -m p1_tpu_torch.benchmarks.sig_verify [--batch-sizes 64 256 1024 4096]
-        [--device-batch 1024] [--device cpu] [--against CHECKOUT]
+        [--device-batch 1024] [--device cpu] [--store-blocks N] [--against CHECKOUT]
 
 The port of ``benchmarks/sig_verify.py``.  ``bench_micro`` times the rungs
 the port has (``core/keys.py``): serial verifies (pure-Python),
@@ -14,10 +14,11 @@ encoding and scalar words), copy in, the kernels (decompression, gate and
 MSM; CUDA events), read back and host close.  Both need a card and raise
 without one; ``--device cpu`` runs ``bench_micro`` with the device rung on
 the plain PyTorch version and has no device rows.  (``--device`` alone, or ``--device cuda``, is
-the default.)  The store revalidation of the JAX package's bench
-(``bench_revalidate``) needs the chain store and comes with the ``node``
-slice.  Prints one JSON line, then (on the card) the card's name and
-power limit.
+the default.)  ``--store-blocks N`` adds ``bench_revalidate``: an N-block
+store of two signed transfers a block (``host_ingest.build_blocks``),
+loaded untrusted serially (the pure-Python rung, one verify per transfer),
+on the active batch rung, with the cache warm, and trusted.  Prints one
+JSON line, then (on the card) the card's name and power limit.
 
 With ``--against``, the checkout at CHECKOUT (a directory that holds
 ``p1_tpu_torch``, e.g. ``git archive <commit> | tar -x -C build/parent``)
@@ -44,6 +45,7 @@ import os
 import pathlib
 import pickle
 import random
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -224,6 +226,64 @@ def bench_device(batch: int = 1024, batch_sizes=(64, 256, 1024, 4096), repeats: 
             "device_us_per_sig": main["us_per_sig"], "device_rows": rows}  # fmt: skip
 
 
+def bench_revalidate(n_blocks: int, repeats: int = 3) -> dict:
+    """Store revalidation three ways (median of ``repeats`` each), and the
+    trusted resume: ``revalidate_serial_s`` disables the fast lane (no
+    pre-verification window, every transfer verified alone on the
+    pure-Python rung), ``revalidate_batch_s`` runs it on the active batch
+    rung (the card's under ``device``), ``revalidate_cached_s`` with every
+    signature already in the cache."""
+    from p1_tpu_torch.benchmarks.host_ingest import build_blocks
+    from p1_tpu_torch.chain import store as store_mod
+    from p1_tpu_torch.chain.store import ChainStore, save_chain
+    from p1_tpu_torch.core import keys
+    from p1_tpu_torch.core.sigcache import SignatureCache
+
+    chain, _raws = build_blocks(n_blocks, 2, difficulty=1)
+    out: dict = {"store_blocks": n_blocks, "store_signatures": 2 * (n_blocks - 1)}
+    with tempfile.TemporaryDirectory() as td:
+        path = pathlib.Path(td) / "bench.chain"
+        save_chain(chain, path)
+
+        def run(serial: bool, warm_cache=None) -> float:
+            store = ChainStore(path)
+            times = []
+            for _ in range(repeats):
+                cache = warm_cache if warm_cache is not None else SignatureCache()
+                old_min, old_stream = keys.BATCH_MIN, store_mod._preverify_stream
+                if serial:
+                    # The fast lane off: per-tx backend calls.
+                    keys.BATCH_MIN = 1 << 30
+                    store_mod._preverify_stream = lambda blocks, tag, cache: blocks
+                try:
+                    t0 = time.perf_counter()
+                    store.load_chain(1, trusted=False, sig_cache=cache)
+                    times.append(time.perf_counter() - t0)
+                finally:
+                    keys.BATCH_MIN, store_mod._preverify_stream = old_min, old_stream
+            store.close()
+            return statistics.median(times)
+
+        t_serial = run(serial=True)
+        t_batch = run(serial=False)
+        warm = SignatureCache()
+        run(serial=False, warm_cache=warm)  # populate
+        t_cached = run(serial=False, warm_cache=warm)
+        trusted_store = ChainStore(path)
+        t0 = time.perf_counter()
+        trusted_store.load_chain(1, trusted=True)
+        t_trusted = time.perf_counter() - t0
+        trusted_store.close()
+    out["revalidate_serial_s"] = t_serial
+    out["revalidate_batch_s"] = t_batch
+    out["revalidate_cached_s"] = t_cached
+    out["trusted_resume_s"] = t_trusted
+    out["revalidate_speedup"] = t_serial / t_batch
+    out["revalidate_bps"] = n_blocks / t_batch
+    out["revalidate_us_per_sig"] = 1e6 * t_batch / out["store_signatures"]
+    return out
+
+
 def kernel_launch(triples):
     """One launch of the kernels of the package on the path, on the batch
     ``prepare`` makes of ``triples`` (seeded coefficients), with its
@@ -289,6 +349,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", nargs="?", const="cuda", default="cuda", choices=["cuda", "cpu"],
                     help="where the device rung runs: the card (default) or the plain version on the CPU")  # fmt: skip
     ap.add_argument("--device-batch", type=int, default=1024, help="device window size")
+    ap.add_argument("--store-blocks", type=int, default=0,
+                    help="also build an N-block store (2 signed transfers a block) and time its "
+                    "revalidation serial vs batch vs cached, and its trusted resume")  # fmt: skip
     ap.add_argument("--against", type=pathlib.Path, help="another checkout of the port, timed in turns")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -303,6 +366,8 @@ def main(argv: list[str] | None = None) -> int:
 
     keys.set_sig_backend("device", device=args.device)
     result = bench_micro(tuple(args.batch_sizes))
+    if args.store_blocks:
+        result.update(bench_revalidate(args.store_blocks))
     if args.device == "cuda":
         result.update(bench_device(args.device_batch, tuple(args.batch_sizes)))
     result["cpu_count"] = os.cpu_count()

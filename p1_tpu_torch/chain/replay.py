@@ -8,8 +8,12 @@ chain through the port's ``Miner`` (on the card by default);
 of the whole chain in one launch of ``hashx/csrc/verify_chain.cu``, or
 with its plain PyTorch version when the caller asks for the CPU.
 
-``replay_native``, ``replay_fast`` and ``replay_packed`` (the C++ SHA-NI
-host engine) arrive with a later slice of the port.
+``replay_fast`` and ``replay_packed`` are the entries the light client
+and the store tools call (``chain/headerplane.py``, ``chain/tooling.py``).
+The JAX package runs them on its C++ SHA-NI host engine when it builds
+and on ``replay_host`` otherwise; that engine (``replay_native``) is not
+in the port yet (ROADMAP Queue A item 11), so here both are
+``replay_host``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ import operator
 import time
 
 import numpy as np
-import torch
 
 from p1_tpu_torch.core.genesis import genesis_header
 from p1_tpu_torch.core.hashutil import sha256d
@@ -165,6 +168,28 @@ def replay_host(headers: list[BlockHeader], retarget=None) -> ReplayReport:
     )
 
 
+def replay_fast(headers: list[BlockHeader], retarget=None) -> ReplayReport:
+    """The light-client entry point: the strongest engine the port has,
+    which is ``replay_host`` until the native engine comes (ROADMAP Queue
+    A item 11).  The JAX package gives the same answer, and the same
+    ``method``, on a host where its native library does not build."""
+    return replay_host(headers, retarget=retarget)
+
+
+def replay_packed(raw: bytes, retarget=None) -> ReplayReport:
+    """Verify a header chain straight from its packed wire/disk buffer
+    (header files, store exports, a segment's ``.hdrx`` blob): a batch
+    parse, then ``replay_host``, as the JAX package does on a host without
+    its native engine (ROADMAP Queue A item 11)."""
+    n = len(raw) // HEADER_SIZE
+    if len(raw) != n * HEADER_SIZE or n == 0:
+        raise ValueError(
+            f"packed header buffer must be a non-empty multiple of "
+            f"{HEADER_SIZE} bytes"
+        )
+    return replay_host(parse_headers(raw), retarget=retarget)
+
+
 def replay_device(
     headers: list[BlockHeader], segment: int = 8192, device: str = "cuda"
 ) -> ReplayReport:
@@ -188,6 +213,8 @@ def replay_device(
     """
     if not headers:
         raise ValueError("empty chain")
+    import torch  # here, not at import: the store tools load the chain package
+
     from p1_tpu_torch.hashx.cuda_verify import first_invalid as verify_first_invalid
 
     device = torch.device(device)

@@ -9,9 +9,8 @@ pure-Python rung.
 
 Capability parity: the reference's "chain-validation code paths"
 (BASELINE.json:5).  Rules enforced here need no chain context beyond the
-expected difficulty; linkage/height rules live in the JAX package's
-``chain/chain.py`` where the block index is, and come to the port with
-the ``node`` slice.
+expected difficulty; linkage/height rules live in ``chain.py`` where the
+block index is.
 
 Validation fast lane (round 8): signature checking is **batch-first**.
 Cheap hash/structure checks still gate exactly as before, then every

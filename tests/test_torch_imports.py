@@ -47,6 +47,20 @@ PORT_MODULES = (
     "p1_tpu_torch.hashx.ed25519_msm",
     "p1_tpu_torch.hashx.cuda_ed25519",
     "p1_tpu_torch.benchmarks.sig_verify",
+    "p1_tpu_torch.chain.ledger",
+    "p1_tpu_torch.chain.filters",
+    "p1_tpu_torch.chain.proof",
+    "p1_tpu_torch.chain.snapshot",
+    "p1_tpu_torch.chain.statedelta",
+    "p1_tpu_torch.chain.chain",
+    "p1_tpu_torch.chain.store",
+    "p1_tpu_torch.chain.segstore",
+    "p1_tpu_torch.chain.headerplane",
+    "p1_tpu_torch.chain.tooling",
+    "p1_tpu_torch.chain.testing",
+    "p1_tpu_torch.node.testing",
+    "p1_tpu_torch.benchmarks.host_ingest",
+    "p1_tpu_torch.cli",
 )
 
 

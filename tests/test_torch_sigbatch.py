@@ -6,7 +6,8 @@ tests/test_keys.py: ``p1_tpu_torch.core.keys`` (the ladder, ``STATS``,
 ``core/tx.py`` and ``core/block.py`` (the same bytes), and
 ``chain/validate.py`` (``check_block`` and ``preverify_signatures``: the
 same verdicts and the same error text as ``p1_tpu``'s on blocks built
-from a seed, torsion crafts included).  The port's default rung,
+from a seed, torsion crafts included), and the untrusted store load that
+streams its signature windows into them (``TestRevalidateEquivalence``).  The port's default rung,
 ``device``, runs here through ``set_sig_backend("device", device="cpu")``
 (the plain PyTorch version), which every test pins unless it asks for
 another rung; asked for the card on a host without one, it raises.
@@ -20,6 +21,8 @@ import dataclasses
 import logging
 import random
 import re
+import struct
+import zlib
 
 import pytest
 import torch
@@ -37,6 +40,9 @@ from p1_tpu.core import block as ref_block
 from p1_tpu.core import keys as ref_keys
 from p1_tpu.core.genesis import genesis_hash as ref_genesis_hash
 from p1_tpu.core.genesis import make_genesis as ref_make_genesis
+from p1_tpu.chain import ChainStore as RefStore
+from p1_tpu.chain import save_chain as ref_save_chain
+from p1_tpu.chain.chain import Chain as RefChain
 from p1_tpu.core.sigcache import SignatureCache as RefCache
 from p1_tpu.hashx import get_backend as ref_get_backend
 from p1_tpu.miner import Miner as RefMiner
@@ -46,7 +52,10 @@ from p1_tpu_torch.core import Block, Transaction, keys, make_genesis, sigcache
 from p1_tpu_torch.core import block as port_block
 from p1_tpu_torch.core.genesis import genesis_hash
 from p1_tpu_torch.core.sigcache import SignatureCache
-from p1_tpu_torch.hashx import cuda_ed25519
+from p1_tpu_torch.chain import ChainStore
+from p1_tpu_torch.chain import store as store_mod
+from p1_tpu_torch.chain import validate as validate_mod
+from p1_tpu_torch.hashx import cuda_ed25519, ed25519_msm
 
 DIFF = 8
 TAG = ref_genesis_hash(DIFF)
@@ -504,3 +513,109 @@ def test_rng_free_batches_agree_with_reference():
     for _ in range(2):
         batch = [_corrupt(t) if rng.random() < 0.2 else t for t in base]
         assert keys.verify_batch(batch) == ref_ed.verify_batch(batch) == all(ref_ed.verify(*t) for t in batch)
+
+
+class TestRevalidateEquivalence:
+    """Mirrors tests/test_sigbatch.py's class: an untrusted load of a
+    store (``ChainStore.load_chain(trusted=False)``) through the
+    pre-verification windows gives the built chain's state, the serial
+    lane's, and the JAX package's load's; a tampered record stops both
+    packages' loads at the same height; a trusted resume verifies
+    nothing."""
+
+    @staticmethod
+    def _build_store(tmp_path, n_blocks=24):
+        """A store written by the JAX package: three funding blocks, then
+        ``n_blocks`` blocks of a coinbase and three signed transfers."""
+        chain = RefChain(DIFF)
+        seq = 0
+        for h in range(1, 4 + n_blocks):
+            txs = [RefTransaction.coinbase(account("alice"), h)]
+            if h >= 4:
+                txs += _transfers(3, seq)
+                seq += 3
+            parent = chain.tip
+            header = RefHeader(1, parent.block_hash(), ref_block.merkle_root([t.txid() for t in txs]),
+                               parent.header.timestamp + 1, DIFF, 0)  # fmt: skip
+            assert chain.add_block(RefBlock(_MINER.search_nonce(header), tuple(txs))).status.value == "accepted"
+        path = tmp_path / "reval.chain"
+        ref_save_chain(chain, path)
+        return chain, path
+
+    @staticmethod
+    def _state(chain):
+        accounts = (account("alice"), account("bob"))
+        return (chain.tip_hash, chain.height, chain.balances_snapshot(), {a: chain.nonce(a) for a in accounts})
+
+    @staticmethod
+    def _serial_lane(m):
+        """The pre-batching cost model: per-tx verifies, no windows."""
+        m.setattr(keys, "BATCH_MIN", 1 << 30)
+        m.setattr(store_mod, "_preverify_stream", lambda blocks, tag, cache: blocks)
+
+    def test_batch_equals_serial_revalidation(self, tmp_path, monkeypatch):
+        built, path = self._build_store(tmp_path)
+        keys.STATS.reset()
+        batch = ChainStore(path).load_chain(DIFF, trusted=False, sig_cache=SignatureCache())
+        assert keys.STATS.backends["device"] == 72  # one window, on the device rung
+        with monkeypatch.context() as m:
+            self._serial_lane(m)
+            serial = ChainStore(path).load_chain(DIFF, trusted=False, sig_cache=SignatureCache())
+        ref = RefStore(path).load_chain(DIFF, trusted=False, sig_cache=RefCache())
+        assert self._state(batch) == self._state(serial) == self._state(built) == self._state(ref)
+
+    def test_windows_stream_by_signature_count(self, tmp_path, monkeypatch):
+        _, path = self._build_store(tmp_path, n_blocks=12)
+        calls = []
+        real = ed25519_msm.verify_batch_device
+        monkeypatch.setattr(ed25519_msm, "verify_batch_device", lambda t, **k: calls.append(len(t)) or real(t, **k))
+        monkeypatch.setattr(validate_mod, "PREVERIFY_WINDOW", 16)
+        ChainStore(path).load_chain(DIFF, trusted=False, sig_cache=SignatureCache())
+        # Windows close at >= 16 pending signatures: six blocks of three.
+        assert calls == [18, 18]
+
+    def test_corrupt_record_same_rejection_both_lanes(self, tmp_path, monkeypatch):
+        built, path = self._build_store(tmp_path, n_blocks=12)
+        # One signature flipped inside the record at height 8, its CRC
+        # fixed so the storage layer hands it through and VALIDATION must
+        # catch it (store.py's "hostile editor, not a disk" case).
+        raw = bytearray(path.read_bytes())
+        target = built.get(built._main_hashes[8])
+        off = raw.find(target.serialize())
+        assert off > 0
+        raw[raw.find(target.txs[1].sig, off)] ^= 1
+        rec_off = off - 4
+        (length,) = struct.unpack_from(">I", raw, rec_off)
+        struct.pack_into(">I", raw, rec_off + 4 + length, zlib.crc32(raw[rec_off : rec_off + 4 + length]))
+        path.write_bytes(bytes(raw))
+
+        def load():
+            return ChainStore(path).load_chain(DIFF, trusted=False, sig_cache=SignatureCache())
+
+        batch_chain = load()
+        with monkeypatch.context() as m:
+            self._serial_lane(m)
+            serial_chain = load()
+        ref_chain = RefStore(path).load_chain(DIFF, trusted=False, sig_cache=RefCache())
+        assert batch_chain.height == serial_chain.height == ref_chain.height == 8 - 1
+        assert batch_chain.tip_hash == ref_chain.tip_hash
+
+    def test_trusted_resume_is_signature_free_and_unchanged(self, tmp_path):
+        built, path = self._build_store(tmp_path, n_blocks=12)
+        keys.STATS.reset()
+        resumed = ChainStore(path).load_chain(DIFF, trusted=True)
+        assert keys.STATS.serial == keys.STATS.batched == 0
+        assert self._state(resumed) == self._state(built)
+
+    def test_untrusted_load_without_a_card_raises(self, tmp_path, monkeypatch):
+        # 8 blocks of three transfers: one 24-signature window, which the
+        # default rung sends to the card.  Without one the load raises; it
+        # never degrades to the pure-Python rung or the plain version.
+        _, path = self._build_store(tmp_path, n_blocks=8)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        keys.set_sig_backend(None)
+        keys.STATS.reset()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ChainStore(path).load_chain(DIFF, trusted=False, sig_cache=SignatureCache())
+        assert keys.STATS.backends["pure-python"] == 0
+        assert keys.backend() == "device"
