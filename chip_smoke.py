@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's paths, ``mine``, ``replay``, signature validation
-(``check_block`` under the ``device`` rung) and the untrusted load of a
-chain store, on the GPU in phases, one JSON
+(``check_block`` under the ``device`` rung), the untrusted load of a
+chain store, a node and the 4-node net, on the GPU in phases, one JSON
 line each, and fails (non-zero exit, no last line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
@@ -87,6 +87,27 @@ line each, and fails (non-zero exit, no last line) if any phase fails:
    signature flipped in the record at height 300 with its CRC fixed: the
    untrusted load stops at height 299, as the serial pure-Python lane's
    load does.
+11. node — ``python -m p1_tpu_torch node`` processes on the card (each
+   logs its kernel wrappers' launch counts at exit, which the phase reads):
+   (a) ``--no-mine --store S --revalidate-store --deadline stdin`` on phase
+   10's store boots through the untrusted load (its status: the store's
+   tip and height, 4,152 device signatures; 5 ``ed25519_msm`` launches),
+   then 200 signed transfers pushed down one session time its admission
+   (the serial pure-Python check, µs per transaction, on the sending side
+   and as the node logs it); (b) a second node
+   with an empty store and ``--peers`` the first deep-syncs the chain and
+   the pool (same tip, device signatures > 0, launches > 0); (c) a mining
+   node at difficulty 20 for 10 s (``blocks_mined`` > 0, search launches
+   > 0), every block of its store checked by hashlib for its target and
+   its link.  Wall times, heights, device signatures and each child's
+   start time are printed.
+12. net — ``python -m p1_tpu_torch net --nodes 4 --difficulty 20
+   --duration 20 --tx-rate 2`` (BASELINE config 4), four node processes on
+   the one card, on a block of ports free at run time: exit 0,
+   ``converged`` and ``economy.ledger_conserved``; height, blocks mined,
+   reorgs, propagation delay, transfers submitted and accepted, each
+   node's ``validation.backends``, launches, bans and admission drops, and
+   its mean µs of pool admission per admitted transfer (logged at exit).
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -94,7 +115,10 @@ measured, at the larger of ``clocks.max.sm`` and the SM clock phase 5
 measured; the white paper's bound rides beside it.  Then the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device it exits 2.  The four kernel sources are built at the start,
-one ``nvcc`` each, all at once.
+one ``nvcc`` each, all at once; a node child loads what is built.  The
+``launches`` of ``sha256d_search`` and ``ed25519_msm`` add phases 11 and
+12's children to this process's paths (``launches_node``,
+``launches_net`` beside them).
 """
 
 from __future__ import annotations
@@ -103,8 +127,11 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import pathlib
 import random
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -124,6 +151,12 @@ SIG_DIFFICULTY = 8  # the check_block fixture chain
 REVAL_BLOCKS = 520  # the revalidated store: 519 blocks of 8 transfers
 REVAL_TXS = 8
 TAMPER_HEIGHT = 300  # the record whose signature is flipped
+ROOT = pathlib.Path(__file__).resolve().parent  # where ``python -m p1_tpu_torch`` resolves
+ADMIT_TXS = 200  # transfers pushed to a live node to time its admission
+NODE_MINE_DIFFICULTY = 20  # phase 11's mining node: BASELINE's difficulty
+NODE_MINE_S = 10
+NET_ARGS = ("--nodes", "4", "--difficulty", "20", "--duration", "20", "--tx-rate", "2")  # BASELINE config 4
+CHILD_TIMEOUT_S = 300  # a node child's start, sync or exit
 #: q = 2^252 + 27742317777372353535851937790883648493 in 4-bit digits,
 #: least significant first: the gate's scalar, the same for every point.
 ED_Q_DIGITS = tuple(((2**252 + 27742317777372353535851937790883648493) >> (4 * w)) & 15 for w in range(64))
@@ -990,6 +1023,305 @@ def phase_revalidate(kernel) -> dict:
             "tampered_launches": tampered_launches, "tampered_s": tampered_s,
             "serial_height": serial.height, "serial_s": serial_s}  # fmt: skip
     emit({"phase": "revalidate", **line})
+    return line, built
+
+
+# -- phases 11 and 12: node processes -----------------------------------------
+
+
+def spawn_node(args: list[str], log: pathlib.Path, device: str, children: list) -> subprocess.Popen:
+    """``python -m p1_tpu_torch node --device DEVICE ARGS``, its log (stderr)
+    to ``log`` (a mining node logs a line or two per block), added to
+    ``children`` so that the phase stops it whatever happens."""
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "p1_tpu_torch", "node", "--device", device, *args],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=fh, text=True, cwd=ROOT,
+        )  # fmt: skip
+    children.append(proc)
+    return proc
+
+
+@contextlib.contextmanager
+def stopped_at_exit(children: list):
+    """Kill and reap every child still running when the block exits."""
+    try:
+        yield children
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def read_line(proc: subprocess.Popen, timeout: float = CHILD_TIMEOUT_S) -> str:
+    """The child's next stdout line, or an error naming its exit."""
+    import selectors
+
+    with selectors.DefaultSelector() as sel:
+        sel.register(proc.stdout, selectors.EVENT_READ)
+        if not sel.select(timeout):
+            proc.kill()
+            raise AssertionError(f"node pid {proc.pid} printed nothing in {timeout} s")
+    line = proc.stdout.readline()
+    if not line:
+        raise AssertionError(f"node pid {proc.pid} exited {proc.wait()} before printing")
+    return line
+
+
+def stop_node(proc: subprocess.Popen) -> dict:
+    """Send a ``--deadline stdin`` node its deadline (now) and return its
+    final status line."""
+    out, _ = proc.communicate(input=f"{time.time()!r}\n", timeout=CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"node pid {proc.pid} exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def logged_launches(log: pathlib.Path) -> list[dict]:
+    """Every ``kernel launches`` line a node (or a net's nodes) logged at
+    exit, in order."""
+    marker = "kernel launches: "
+    return [json.loads(line.split(marker, 1)[1]) for line in log.read_text().splitlines() if marker in line]
+
+
+def logged_admission(log: pathlib.Path) -> list[dict]:
+    """Every ``tx admission`` line a node (or a net's nodes) logged at exit
+    (its port, transfers admitted, seconds in pool admission), in order,
+    with the mean µs per admitted transfer."""
+    marker = "tx admission: "
+    lines = [json.loads(line.split(marker, 1)[1]) for line in log.read_text().splitlines() if marker in line]
+    return [{**a, "us_per_tx": 1e6 * a["s"] / a["txs_accepted"] if a["txs_accepted"] else None} for a in lines]
+
+
+def free_port_block(n: int) -> int:
+    """A base port whose ``n`` ports from it are all free on 127.0.0.1 now:
+    a net's nodes listen on base..base+n-1, and a fixed base would meet
+    another net (or another checkout's smoke) on the same host."""
+    for _ in range(64):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            base = probe.getsockname()[1]
+        if base + n > 65536:
+            continue
+        held = []
+        try:
+            for port in range(base, base + n):
+                held.append(socket.socket())
+                held[-1].bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in held:
+                sock.close()
+    raise AssertionError(f"no block of {n} free ports on 127.0.0.1")
+
+
+def status_of(port: int, difficulty: int, tries: int = 5) -> dict:
+    """The node's status over the wire; a node whose loop is busy (a
+    signature window) may miss a query's deadline, so a few tries."""
+    import asyncio
+
+    from p1_tpu_torch.node.client import get_status
+
+    for attempt in range(tries):
+        try:
+            return asyncio.run(get_status("127.0.0.1", port, difficulty))
+        except (TimeoutError, OSError):
+            if attempt == tries - 1:
+                raise
+    raise AssertionError("unreachable")
+
+
+def measure_admission(port: int, chain, n: int = ADMIT_TXS) -> dict:
+    """Push ``n`` signed transfers of the store's funded sender down one
+    session to the node at ``port`` and time, from the first frame, until
+    its ``txs_accepted`` has grown by ``n``: the node's admission (frame
+    decode, the serial pure-Python signature check, the pool) per
+    transaction, timed on the sending side."""
+    import asyncio
+
+    from p1_tpu_torch.benchmarks.sig_verify import sign_many
+    from p1_tpu_torch.core.keys import Keypair
+    from p1_tpu_torch.core.tx import Transaction
+    from p1_tpu_torch.node import protocol
+    from p1_tpu_torch.node.client import _session, get_status
+
+    alice = Keypair.from_seed_text("host-ingest-alice")  # build_blocks' sender
+    tag, seq0 = chain.genesis.block_hash(), chain.nonce(alice.account)
+    unsigned = [Transaction(alice.account, "bob", 1, 1, seq0 + i, chain=tag) for i in range(n)]
+    sigs = sign_many((alice._seed, tx.signing_bytes()) for tx in unsigned)
+    frames = [protocol.encode_tx(dataclasses.replace(tx, pubkey=alice.pubkey, sig=sig))
+              for tx, sig in zip(unsigned, sigs)]  # fmt: skip
+
+    async def push() -> tuple[float, dict]:
+        before = (await get_status("127.0.0.1", port, 1))["txs_accepted"]
+        async with _session("127.0.0.1", port, 1, None) as (_, writer, _hello):
+            t0 = time.perf_counter()
+            for frame in frames:
+                await protocol.write_frame(writer, frame)
+            while True:
+                status = await get_status("127.0.0.1", port, 1)
+                if status["txs_accepted"] - before >= n or time.perf_counter() - t0 > CHILD_TIMEOUT_S:
+                    return time.perf_counter() - t0, status
+                await asyncio.sleep(0.05)
+
+    wall_s, status = asyncio.run(push())
+    if status["mempool"] != n:
+        raise AssertionError(f"admission: {status['mempool']} of {n} transfers in the pool")
+    return {"txs": n, "wall_s": wall_s, "us_per_tx": 1e6 * wall_s / n,
+            "serial_verifies": status["validation"]["serial"]}  # fmt: skip
+
+
+def phase_node(built, device: str = "cuda", mine_difficulty: int = NODE_MINE_DIFFICULTY,
+               mine_s: float = NODE_MINE_S) -> dict:  # fmt: skip
+    """Phase 11: ``python -m p1_tpu_torch node`` on the card.  (a) A node
+    boots on phase 10's store with ``--revalidate-store`` (the untrusted
+    load: every signature window on ``ed25519_msm.cu``), and its admission
+    of signed transfers is timed; (b) a second node with an empty store
+    deep-syncs the chain and the first node's pool from it; (c) a mining
+    node at difficulty 20 seals blocks through ``sha256d_search.cu``, and
+    every block of its store passes hashlib's target and link check."""
+    from p1_tpu_torch.chain import ChainStore, save_chain
+    from p1_tpu_torch.core.genesis import make_genesis
+    from p1_tpu_torch.core.hashutil import sha256d
+    from p1_tpu_torch.core.header import meets_target
+
+    signatures = (REVAL_BLOCKS - 1) * REVAL_TXS
+    tip = built.tip_hash.hex()
+    with tempfile.TemporaryDirectory() as tmp, stopped_at_exit([]) as children:
+        tmp = pathlib.Path(tmp)
+        save_chain(built, tmp / "a.chain")
+        common = ["--port", "0", "--deadline", "stdin", "--no-mine", "--difficulty", "1"]
+        t0 = time.perf_counter()
+        a = spawn_node([*common, "--store", str(tmp / "a.chain"), "--revalidate-store"], tmp / "a.log", device,
+                       children)  # fmt: skip
+        port_a = json.loads(read_line(a))["ready"]
+        boot_s = time.perf_counter() - t0
+        booted = status_of(port_a, 1)
+        if (booted["tip"], booted["height"], booted["validation"]["backends"]["device"]) != (
+            tip, built.height, signatures
+        ):
+            raise AssertionError(f"revalidating boot: {booted['tip']} at {booted['height']}, "
+                                 f"{booted['validation']['backends']} device signatures")  # fmt: skip
+        admission = measure_admission(port_a, built)
+
+        t1 = time.perf_counter()
+        b = spawn_node([*common, "--store", str(tmp / "b.chain"), "--peers", f"127.0.0.1:{port_a}"],
+                       tmp / "b.log", device, children)  # fmt: skip
+        port_b = json.loads(read_line(b))["ready"]
+        start_s = time.perf_counter() - t1
+        synced = {"height": None, "mempool": None}
+        while True:
+            with contextlib.suppress(TimeoutError, OSError):  # a busy loop misses a query
+                synced = status_of(port_b, 1, tries=1)
+                if synced["tip"] == tip and synced["mempool"] == ADMIT_TXS:
+                    break
+            if time.perf_counter() - t1 > CHILD_TIMEOUT_S:
+                raise AssertionError(f"deep sync stuck at height {synced['height']}, pool {synced['mempool']}")
+            time.sleep(0.1)
+        sync_s = time.perf_counter() - t1 - start_s
+        final_b, final_a = stop_node(b), stop_node(a)
+        (launches_a,), (launches_b,) = logged_launches(tmp / "a.log"), logged_launches(tmp / "b.log")
+        (admitted_a,) = logged_admission(tmp / "a.log")
+        if final_b["tip"] != final_a["tip"] or final_b["validation"]["backends"]["device"] <= 0:
+            raise AssertionError(f"synced node: tip {final_b['tip']}, {final_b['validation']['backends']}")
+        if device == "cuda" and (launches_a["ed25519_msm"] != 5 or launches_b["ed25519_msm"] <= 0):
+            raise AssertionError(f"ed25519_msm launches: boot {launches_a}, sync {launches_b}")
+
+        t2 = time.perf_counter()
+        c = spawn_node(["--port", "0", "--difficulty", str(mine_difficulty), "--store", str(tmp / "c.chain"),
+                        "--duration", str(mine_s)], tmp / "c.log", device, children)  # fmt: skip
+        out, _ = c.communicate(timeout=mine_s + CHILD_TIMEOUT_S)
+        mine_wall_s = time.perf_counter() - t2
+        final_c = json.loads(out.strip().splitlines()[-1])
+        (launches_c,) = logged_launches(tmp / "c.log")
+        if c.returncode != 0 or final_c["blocks_mined"] <= 0:
+            raise AssertionError(f"mining node: exit {c.returncode}, {final_c['blocks_mined']} blocks mined")
+        if device == "cuda" and launches_c["sha256d_search"] <= 0:
+            raise AssertionError(f"mining node launched the search kernel no time: {launches_c}")
+        store = ChainStore(tmp / "c.chain")
+        try:
+            blocks = store.load_blocks()
+        finally:
+            store.close()
+        seen = {make_genesis(mine_difficulty).block_hash()}
+        for block in blocks:
+            raw = block.header.serialize()
+            if block.header.prev_hash not in seen or not meets_target(sha256d(raw), mine_difficulty):
+                raise AssertionError(f"stored block fails its target or link: {raw.hex()}")
+            seen.add(sha256d(raw))
+        if final_c["tip"] != blocks[-1].block_hash().hex() or len(blocks) < final_c["height"]:
+            raise AssertionError(f"store of {len(blocks)} blocks, node at {final_c['height']} {final_c['tip']}")
+    line = {"boot_revalidate_s": boot_s, "boot_height": booted["height"], "boot_tip": booted["tip"],
+            "boot_device_signatures": booted["validation"]["backends"]["device"],
+            "launches_boot": launches_a, "admission": {**admission, "node_us_per_tx": admitted_a["us_per_tx"]},
+            "start_s": start_s, "sync_s": sync_s, "synced_height": final_b["height"],
+            "synced_device_signatures": final_b["validation"]["backends"]["device"],
+            "launches_sync": launches_b, "mine_wall_s": mine_wall_s, "mined_height": final_c["height"],
+            "blocks_mined": final_c["blocks_mined"], "stored_blocks_checked": len(blocks),
+            "hashes_per_sec": final_c["hashes_per_sec"], "time_to_block_s": final_c["time_to_block_s"],
+            "launches_mine": launches_c}  # fmt: skip
+    emit({"phase": "node", **line})
+    return line
+
+
+def phase_net(device: str = "cuda", net_args: tuple = NET_ARGS) -> dict:
+    """Phase 12: ``python -m p1_tpu_torch net`` (BASELINE config 4), four
+    node processes on the one card with a live transfer economy; it must
+    exit 0, converged, with every ledger conserved.  Each node's bans and
+    admission drops, and its mean µs of pool admission per admitted
+    transfer (logged at its exit), are printed."""
+    nodes = int(net_args[net_args.index("--nodes") + 1])
+    base_port = free_port_block(nodes)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = pathlib.Path(tmp) / "net.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as fh:
+            # A session of its own: should the net hang, its node children
+            # go down with it.
+            proc = subprocess.Popen([sys.executable, "-m", "p1_tpu_torch", "net", "--device", device, *net_args,
+                                     "--base-port", str(base_port)],
+                                    stdout=subprocess.PIPE, stderr=fh, text=True, cwd=ROOT,
+                                    start_new_session=True)  # fmt: skip
+        try:
+            stdout, _ = proc.communicate(timeout=4 * CHILD_TIMEOUT_S)
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        wall_s = time.perf_counter() - t0
+        launches, admitted = logged_launches(log), logged_admission(log)
+        tail = log.read_text()[-3000:]
+    try:
+        out = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        raise AssertionError(f"net exited {proc.returncode} with no summary: {tail}") from None
+    per_node = [{"height": s["height"], "tip": s["tip"][:16], "peers": s["peers"], "banned_hosts": s["banned_hosts"],
+                 "reorgs": s["reorgs"], "admission_dropped": s["overload"]["admission_dropped"]}
+                for s in out["statuses"]]  # fmt: skip
+    converged = out["converged"] and out["economy"]["ledger_conserved"]
+    if proc.returncode != 0 or not converged or len(launches) != nodes or len(admitted) != nodes:
+        raise AssertionError(f"net: exit {proc.returncode}, converged {out['converged']}, economy "
+                             f"{out.get('economy')}, {len(launches)} launch lines, nodes {per_node}")  # fmt: skip
+    if device == "cuda" and not all(n.get("sha256d_search", 0) > 0 for n in launches):
+        raise AssertionError(f"a net node launched the search kernel no time: {launches}")
+    statuses = out["statuses"]
+    line = {"wall_s": wall_s, "height": out["height"], "blocks_mined_total": out["blocks_mined_total"],
+            "reorgs_total": out["reorgs_total"], "propagation_delay_ms": out["propagation_delay_ms"],
+            "txs_submitted": out["economy"]["txs_submitted"], "txs_failed": out["economy"]["txs_failed"],
+            "txs_accepted_total": out["economy"]["txs_accepted_total"],
+            "heights": [s["height"] for s in statuses], "blocks_mined": [s["blocks_mined"] for s in statuses],
+            "hashes_per_sec": [s["hashes_per_sec"] for s in statuses],
+            "time_to_block_s": [s["time_to_block_s"] for s in statuses],
+            "validation_backends": [s["validation"]["backends"] for s in statuses],
+            "banned_hosts_total": sum(n["banned_hosts"] for n in per_node),
+            "admission_dropped_total": {cls: sum(n["admission_dropped"][cls] for n in per_node)
+                                        for cls in per_node[0]["admission_dropped"]},
+            "admission_us_per_tx": {str(a["port"]): a["us_per_tx"] for a in admitted},
+            "nodes": per_node, "launches": launches}  # fmt: skip
+    emit({"phase": "net", **line})
     return line
 
 
@@ -1158,10 +1490,20 @@ def main() -> int:
     ed25519 = phase_ed25519(sass, sms, peak)
 
     # -- 10. the untrusted load of a chain store -----------------------------
-    revalidate = phase_revalidate(cuda_ed25519.ed25519_msm)
+    revalidate, built_store = phase_revalidate(cuda_ed25519.ed25519_msm)
     ed25519["launches_check_block"] = ed25519["launches"]
     ed25519["launches_revalidate"] = revalidate["launches"]
     ed25519["launches"] += revalidate["launches"]
+
+    # -- 11-12. the node and the 4-node net, in processes of their own -------
+    node = phase_node(built_store)
+    net = phase_net()
+    node_children = (node["launches_boot"], node["launches_sync"], node["launches_mine"])
+    ed25519["launches_node"] = sum(n.get("ed25519_msm", 0) for n in node_children)
+    ed25519["launches_net"] = sum(n.get("ed25519_msm", 0) for n in net["launches"])
+    ed25519["launches"] += ed25519["launches_node"] + ed25519["launches_net"]
+    search_node = sum(n.get("sha256d_search", 0) for n in node_children)
+    search_net = sum(n.get("sha256d_search", 0) for n in net["launches"])
     ed25519["revalidate"] = {k: revalidate[k] for k in ("blocks", "signatures", "untrusted_s", "blocks_per_s", "us_per_sig")}
 
     print(json.dumps({"kernels": [
@@ -1169,11 +1511,12 @@ def main() -> int:
             "name": "sha256d_search", "route": "cuda",
             "source": "p1_tpu_torch/hashx/csrc/sha256d_search.cu",
             "replaces": "p1_tpu/hashx/pallas_backend.py:67",
-            "launches": launches, "max_abs_err": max_err,
+            "launches": launches + search_node + search_net, "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "library_ms": None,
             "bound_ms_white_paper": bound_wp_ms, "bound_ms_measured_rate": bound_measured_ms,
-            "launches_replay": search_launches,
+            "launches_mine": launches, "launches_replay": search_launches,
+            "launches_node": search_node, "launches_net": search_net,
         },
         roof,
         verify,

@@ -28,7 +28,11 @@ What differs is which rungs exist and where ``auto`` goes:
   on a host without a compiler.
 - The JAX package's worker pool is not carried: the pure-Python batch
   holds the GIL for its whole MSM and the device rung orders its launches
-  on the card's stream, so neither rung gains from one.
+  on the card's stream, so neither rung gains from one.  Its knob stays
+  (``set_verify_workers`` / ``verify_workers``, and
+  ``shutdown_verify_pool`` as a no-op): the node sizes it from
+  ``--verify-workers`` / ``--pipeline-workers`` and reports the size in
+  ``status()["validation"]["workers"]``, as the JAX package's node does.
 
 Semantics, shared by every rung:
 
@@ -345,6 +349,29 @@ BATCH_MIN = 8
 BATCH_CHUNK = 1024
 
 _fallback_warned = False
+
+#: Explicit ``set_verify_workers`` pin (None = unpinned).  Recorded
+#: only: no rung of the port runs a pool (module docstring).
+_workers: int | None = None
+
+
+def set_verify_workers(n: int | None) -> None:
+    """Pin the verification worker count (None/0 = unpinned).  The port's
+    rungs run no pool, so the size changes neither where nor how a batch
+    is verified; it is what ``verify_workers`` reports."""
+    global _workers
+    _workers = int(n) if n else None
+
+
+def verify_workers() -> int:
+    """The pinned worker count, else 1: unpinned, every rung verifies on
+    one thread (serially, or one stream of the card)."""
+    return max(1, _workers) if _workers is not None else 1
+
+
+def shutdown_verify_pool(cancel: bool = False) -> None:
+    """No-op: the port keeps no pool to tear down (the JAX package's
+    call, kept for its callers)."""
 
 
 def _batch_worker():

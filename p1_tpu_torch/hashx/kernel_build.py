@@ -9,8 +9,12 @@ Every library lands in ``build/p1_tpu_torch/`` beside the package
 (``.gitignore`` lists ``build/``), named by a hash of the source, the
 headers (``*.cuh``) of its ``csrc`` and the flags, so an edited source or
 header rebuilds and an unchanged one loads; the ``-Xptxas -v`` report is
-kept beside it (``.ptxas``).  Concurrent builds race benignly through an
-atomic rename, and ``build_all`` starts one ``nvcc`` per source at once.
+kept beside it (``.ptxas``).  Threads of one process that build one
+source at once run one ``nvcc`` (a lock per library): the node's miner
+thread and its validate lane may reach an unbuilt kernel together.
+Builds from several processes race benignly: each writes a temporary file
+of its own (named by process and thread) and renames it into place
+atomically.  ``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -32,6 +37,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )  # fmt: skip
 _NVCC_TIMEOUT_S = 600
+
+#: One lock per library path: ``build`` holds it from the existence check
+#: to the rename.
+_LOCKS: dict[pathlib.Path, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -71,7 +81,7 @@ def _start(source: str, csrc: pathlib.Path):
     if out.exists():
         return out, None, None, None, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp.{os.getpid()}")
+    tmp = out.with_suffix(f".tmp.{os.getpid()}.{threading.get_ident()}")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return out, proc, tmp, cmd, time.perf_counter()
@@ -96,9 +106,17 @@ def _finish(out, proc, tmp, cmd, t0) -> BuiltKernel:
     return BuiltKernel(out, ctypes.CDLL(str(out)), build_s, log)
 
 
+def _lock(out: pathlib.Path) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _LOCKS.setdefault(out, threading.Lock())
+
+
 def build(source: str, csrc: pathlib.Path = CSRC) -> BuiltKernel:
-    """Compile ``csrc/<source>`` (if needed) and load it."""
-    return _finish(*_start(source, csrc))
+    """Compile ``csrc/<source>`` (if needed) and load it.  A thread that
+    finds another building the same library waits for it and loads what
+    it built."""
+    with _lock(library_path(source, csrc)):
+        return _finish(*_start(source, csrc))
 
 
 def build_all(sources: list[tuple[str, pathlib.Path]]) -> list[BuiltKernel]:

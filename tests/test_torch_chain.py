@@ -19,10 +19,10 @@ plain PyTorch version (``set_sig_backend("device", device="cpu")``).
 Transfers are signed with the JAX package's keys (``tests/txutil.py``'s
 ``key_for``) and carried into the port by their bytes (``stx``).
 
-Waiting for the node slice (they build a ``Node`` or a ``Mempool``):
-test_consensus.py's ``TestMempoolBalance``, test_chain.py's
-``TestCrashRecovery.test_sigkill_mid_mining_then_restart`` (a node
-process), and ``TestReplay``, whose device cases the port's
+test_consensus.py's ``TestMempoolBalance`` runs on the port's ``Mempool``
+and ``TestCrashRecovery.test_sigkill_mid_mining_then_restart`` on a port
+node process (``--backend cpu --device cpu``).  Not mirrored here:
+test_chain.py's ``TestReplay``, whose device cases the port's
 tests/test_torch_replay.py holds.
 """
 
@@ -1169,6 +1169,68 @@ class TestLedger:
 
 
 class TestCrashRecovery:
+    def test_sigkill_mid_mining_then_restart(self, tmp_path):
+        """Real fault injection: SIGKILL a mining node process
+        and restart on the same store — the log must replay to a valid
+        chain (possibly minus a torn tail record) and keep growing."""
+        import json
+        import os
+        import signal
+        import subprocess
+        import sys
+        import time
+
+        store = tmp_path / "crash.dat"
+        env = dict(os.environ)
+        repo_root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+        cmd = [
+            sys.executable, "-m", "p1_tpu_torch", "node",
+            "--port", "0", "--difficulty", "10", "--backend", "cpu", "--device", "cpu",
+            "--store", str(store), "--duration", "60",
+        ]
+        err_path = tmp_path / "node.err"
+        with open(err_path, "w") as err_fh:
+            proc = subprocess.Popen(
+                cmd, env=env, cwd=repo_root,
+                stdout=subprocess.DEVNULL, stderr=err_fh,
+            )
+            try:
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline:
+                    if proc.poll() is not None:  # died at startup: fail fast
+                        raise AssertionError(
+                            f"node exited rc={proc.returncode}: "
+                            f"{err_path.read_text()[-2000:]}"
+                        )
+                    if store.exists() and store.stat().st_size > 2000:
+                        break
+                    time.sleep(0.1)
+                else:
+                    raise AssertionError(
+                        "node never persisted blocks: "
+                        f"{err_path.read_text()[-2000:]}"
+                    )
+            finally:
+                proc.send_signal(signal.SIGKILL)
+                proc.wait(timeout=30)
+
+        # Restart on the possibly-torn store: it must resume and extend.
+        out = subprocess.run(
+            [
+                sys.executable, "-m", "p1_tpu_torch", "node",
+                "--port", "0", "--difficulty", "10", "--backend", "cpu", "--device", "cpu",
+                "--store", str(store), "--duration", "2",
+            ],
+            env=env, cwd=repo_root,
+            capture_output=True, text=True, timeout=110,
+        )
+        assert out.returncode == 0, out.stderr[-2000:]
+        status = json.loads(out.stdout.strip().splitlines()[-1])
+        assert status["height"] > 0
+        # And the final store must audit clean.
+        resumed = ChainStore(store).load_chain(10)
+        assert resumed.height >= status["height"] - 1
+
     def test_store_mutation_fuzz_fails_closed(self, chain_blocks, tmp_path):
         """Arbitrary corruption of a store must degrade, not explode, on
         BOTH paths the node restart uses: ``acquire()`` (which converts
@@ -1732,3 +1794,124 @@ class TestForkChoicePropertyWithLedger:
         # 3. Convergence: delivery order never changes the winner.
         assert len(tips) == 1
 
+
+class TestMempoolBalance:
+    def test_admission_requires_funds(self):
+        from p1_tpu_torch.mempool import Mempool
+
+        chain, _ = _funded_chain("alice")
+        pool = Mempool(balance_of=chain.balance)
+        assert not pool.add(stx("bob", "alice", 1, 0, 0))  # bob has nothing
+        assert pool.add(stx("alice", "bob", 30, 1, 0))
+        # Second spend must fit the REMAINING 19 net of the pending 31.
+        assert not pool.add(stx("alice", "bob", 20, 0, 1))
+        assert pool.add(stx("alice", "bob", 19, 0, 1))
+
+    def test_rbf_replacement_releases_incumbent_debit(self):
+        from p1_tpu_torch.mempool import Mempool
+
+        chain, _ = _funded_chain("alice")
+        pool = Mempool(balance_of=chain.balance)
+        assert pool.add(stx("alice", "bob", 45, 1, 0))  # debit 46
+        # Same slot, higher fee, SAME size spend: affordable only if the
+        # incumbent's 46 is released before the check.
+        assert pool.add(stx("alice", "bob", 45, 2, 0))
+        # ... and the tally reflects exactly one pending spend (47).
+        assert not pool.add(stx("alice", "bob", 4, 0, 1))
+        assert pool.add(stx("alice", "bob", 3, 0, 1))
+
+    def test_select_skips_unaffordable_without_dropping(self):
+        from p1_tpu_torch.mempool import Mempool
+
+        chain, _ = _funded_chain("alice")
+        # Build the pool balance-blind (as if funded earlier), then select
+        # against a ledger where alice can only afford part of it.
+        pool = Mempool()
+        rich = stx("alice", "bob", 40, 5, 0)
+        poor = stx("alice", "bob", 40, 1, 1)  # together they exceed 50
+        assert pool.add(rich) and pool.add(poor)
+        pool.balance_of = chain.balance
+        picked = pool.select(10)
+        assert picked == [rich]  # higher fee wins the budget
+        assert poor.txid() in pool  # skipped, not dropped
+
+    def test_admission_requires_this_chains_tag(self):
+        # Pool-level mirror of the cross-chain replay rule: a spend signed
+        # for another chain (internally valid!) is refused at admission.
+        from p1_tpu_torch.core.genesis import genesis_hash
+        from p1_tpu_torch.mempool import Mempool
+
+        chain, _ = _funded_chain("alice")
+        pool = Mempool(
+            balance_of=chain.balance, chain_tag=genesis_hash(DIFF)
+        )
+        foreign = stx("alice", "bob", 5, 1, 0, difficulty=12)
+        assert foreign.verify_signature()
+        assert not pool.add(foreign)
+        assert pool.add(stx("alice", "bob", 5, 1, 0, difficulty=DIFF))
+
+    def test_select_emits_gap_free_seq_runs(self):
+        from p1_tpu_torch.mempool import Mempool
+
+        chain, _ = _funded_chain("alice")
+        pool = Mempool(balance_of=chain.balance, nonce_of=chain.nonce)
+        # Ascending fees over a seq run: rank order is the REVERSE of the
+        # required confirmation order — the eligibility heap must still
+        # emit seq 0,1,2 (and the gapped seq 9 never).
+        t0 = stx("alice", "bob", 2, 1, 0)
+        t1 = stx("alice", "bob", 2, 5, 1)
+        t2 = stx("alice", "bob", 2, 9, 2)
+        gap = stx("alice", "bob", 1, 20, 9)
+        for t in (gap, t2, t1, t0):
+            assert pool.add(t)
+        assert [t.seq for t in pool.select(10)] == [0, 1, 2]
+        # An unaffordable tx ends its sender's run (later seqs would gap).
+        # Build the overweight pair balance-blind (as if funded when
+        # admitted, then a reorg shrank the balance).
+        pool.balance_of = None
+        big = stx("alice", "bob", 40, 1, 3)  # 41 > the 29 left after 0-2
+        after = stx("alice", "bob", 1, 50, 4)
+        assert pool.add(big) and pool.add(after)
+        pool.balance_of = chain.balance
+        assert [t.seq for t in pool.select(10)] == [0, 1, 2]  # run ends at 3
+
+    def test_custom_genesis_chain_tag(self):
+        # A chain built on a custom genesis must accept transfers bound to
+        # ITS genesis hash (not the default-for-difficulty one) — the tag
+        # the node's HELLO and mempool advertise.
+        import dataclasses as dc
+
+        from p1_tpu_torch.core.genesis import make_genesis
+
+        custom = dc.replace(
+            make_genesis(DIFF).header, timestamp=1_700_000_000
+        )
+        custom_genesis = Block(custom, ())
+        chain = Chain(DIFF, genesis=custom_genesis)
+        alice = key_for("alice")
+        b1 = _mine_child(
+            custom_genesis, txs=(Transaction.coinbase(alice.account, 1),)
+        )
+        assert chain.add_block(b1).status is AddStatus.ACCEPTED
+        pay = Transaction.transfer(
+            alice, "bob", 5, 1, 0, chain=custom_genesis.block_hash()
+        )
+        ok = _mine_child(b1, txs=(pay,))
+        assert chain.add_block(ok).status is AddStatus.ACCEPTED
+        # ... and the default-genesis tag is a DIFFERENT chain here.
+        foreign = stx("alice", "carol", 5, 1, 1, difficulty=DIFF)
+        bad = _mine_child(ok, txs=(foreign,))
+        res = chain.add_block(bad)
+        assert res.status is AddStatus.REJECTED
+        assert "different chain" in res.reason
+
+    def test_eviction_releases_debit(self):
+        from p1_tpu_torch.mempool import Mempool
+
+        chain, b1 = _funded_chain("alice")
+        pool = Mempool(balance_of=chain.balance)
+        spend = stx("alice", "bob", 45, 1, 0)
+        assert pool.add(spend)
+        blk = _mine_child(b1, txs=(spend,))
+        pool.apply_block_delta((), (blk,))
+        assert pool._pending_debit == {}

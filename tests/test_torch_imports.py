@@ -60,7 +60,26 @@ PORT_MODULES = (
     "p1_tpu_torch.chain.testing",
     "p1_tpu_torch.node.testing",
     "p1_tpu_torch.benchmarks.host_ingest",
+    "p1_tpu_torch.benchmarks.net_relay",
     "p1_tpu_torch.cli",
+    "p1_tpu_torch.chain.versionbits",
+    "p1_tpu_torch.config",
+    "p1_tpu_torch.mempool",
+    "p1_tpu_torch.mempool.mempool",
+    "p1_tpu_torch.node",
+    "p1_tpu_torch.node.transport",
+    "p1_tpu_torch.node.supervision",
+    "p1_tpu_torch.node.governor",
+    "p1_tpu_torch.node.pipeline",
+    "p1_tpu_torch.node.reconcile",
+    "p1_tpu_torch.node.protocol",
+    "p1_tpu_torch.node.telemetry",
+    "p1_tpu_torch.node.subscriptions",
+    "p1_tpu_torch.node.node",
+    "p1_tpu_torch.node.client",
+    "p1_tpu_torch.node.runner",
+    "p1_tpu_torch.node.byzantine",
+    "p1_tpu_torch.node.netharness",
 )
 
 

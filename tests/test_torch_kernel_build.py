@@ -248,3 +248,79 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         kernel_build.build("k.cu", csrc)
     with pytest.raises(kernel_build.KernelBuildError, match="nvcc not found"):
         kernel_build.build_all([("k.cu", csrc)])
+
+
+def _fake_nvcc(tmp_path, delay_s=0.2):
+    """An ``nvcc`` stand-in that logs each run, takes ``delay_s`` and
+    writes its ``-o`` file."""
+    import sys
+
+    runs = tmp_path / "runs.log"
+    script = tmp_path / "nvcc"
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        f"open({str(runs)!r}, 'a').write('run\\n')\n"
+        f"time.sleep({delay_s})\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('library')\n"
+    )
+    script.chmod(0o755)
+    return script, runs
+
+
+def test_threads_building_one_source_run_one_nvcc(tmp_path, monkeypatch):
+    # The node's miner thread and its validate lane can reach an unbuilt
+    # kernel at once: one nvcc runs, every thread gets its library, and
+    # no temporary file is left behind.
+    import threading
+
+    script, runs = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernel_build, "find_nvcc", lambda: str(script))
+    monkeypatch.setattr(kernel_build.ctypes, "CDLL", lambda path: ("loaded", path))
+    csrc = _csrc(tmp_path)
+    results, errors = [], []
+
+    def worker():
+        try:
+            results.append(kernel_build.build("k.cu", csrc))
+        except Exception as e:  # noqa: BLE001 - the assertion reports it
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker) for _ in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors and len(results) == 6
+    assert runs.read_text().count("run") == 1
+    path = kernel_build.library_path("k.cu", csrc)
+    assert {r.path for r in results} == {path} and path.read_text() == "library"
+    assert sorted(r.build_s > 0 for r in results) == [False] * 5 + [True]
+    assert [p.name for p in path.parent.iterdir() if ".tmp." in p.name] == []
+
+
+def test_temporary_outputs_are_named_per_thread(tmp_path, monkeypatch):
+    # Builds that do not share the lock (build_all beside build, or two
+    # processes) each write their own temporary file before the rename.
+    import threading
+
+    script, runs = _fake_nvcc(tmp_path, delay_s=0.0)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kernel_build, "find_nvcc", lambda: str(script))
+    csrc = _csrc(tmp_path)
+    tmps = []
+
+    def start():
+        out, proc, tmp, _, _ = kernel_build._start("k.cu", csrc)
+        proc.communicate()
+        tmps.append(tmp)
+
+    threads = [threading.Thread(target=start) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert len(set(tmps)) == 3 and all(t.read_text() == "library" for t in tmps)
+    assert runs.read_text().count("run") == 3

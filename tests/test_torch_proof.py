@@ -9,11 +9,12 @@ blocks give the same proofs, and each package's ``verify_tx_proof`` gives
 the same verdict and error text on honest and tampered proofs.
 
 Transfers are signed with the JAX package's keys and carried into the
-port by their bytes.  Waiting for the node slice (they run the wire
-protocol or a ``Node``): test_proof.py's ``TestProofWire`` and
-``TestProofOverWire``.
+port by their bytes.  test_proof.py's ``TestProofWire`` (the GETPROOF and
+PROOF frames) and ``TestProofOverWire`` (a port ``Node`` serving a proof
+that verifies) run on the port's protocol and node.
 """
 
+import asyncio
 import dataclasses
 import random
 
@@ -44,6 +45,8 @@ from p1_tpu_torch.core.genesis import genesis_hash
 from p1_tpu_torch.core.hashutil import sha256d
 from p1_tpu_torch.hashx import get_backend
 from p1_tpu_torch.miner import Miner
+from p1_tpu_torch.node import protocol
+from p1_tpu_torch.node.protocol import MsgType
 
 DIFF = 8
 _MINER = Miner(backend=get_backend("cpu"))
@@ -374,3 +377,87 @@ class TestCrossPackage:
             want = str(exc)
         assert got == want
         assert (got is None) == (how == "honest")
+
+
+class TestProofWire:
+    def test_getproof_round_trip(self):
+        txid = b"\xab" * 32
+        mtype, got = protocol.decode(protocol.encode_getproof(txid))
+        assert mtype is MsgType.GETPROOF and got == txid
+
+    def test_proof_round_trip(self):
+        chain, b1 = _funded_chain("alice")
+        spend = stx("alice", account("bob"), 10, 1, 0)
+        b2 = _mine_child(b1, txs=(Transaction.coinbase("m", 2), spend))
+        chain.add_block(b2)
+        proof = chain.tx_proof(spend.txid())
+        mtype, got = protocol.decode(protocol.encode_proof(proof))
+        assert mtype is MsgType.PROOF and got == proof
+        mtype, got = protocol.decode(protocol.encode_proof(None))
+        assert mtype is MsgType.PROOF and got is None
+
+    @pytest.mark.parametrize(
+        "payload",
+        [
+            bytes([MsgType.GETPROOF]),  # no txid
+            bytes([MsgType.GETPROOF]) + b"\x00" * 31,  # short txid
+            bytes([MsgType.GETPROOF]) + b"\x00" * 33,  # long txid
+            bytes([MsgType.PROOF]),  # no flag
+            bytes([MsgType.PROOF, 0, 0]),  # trailing after not-found
+            bytes([MsgType.PROOF, 2]),  # bad flag
+            bytes([MsgType.PROOF, 1]) + b"\x00" * 10,  # truncated body
+            bytes([MsgType.PROOF, 1]) + b"\x00" * 94 + b"\x00\x05",  # branch lies
+        ],
+    )
+    def test_malformed_rejected(self, payload):
+        with pytest.raises(ValueError):
+            protocol.decode(payload)
+
+
+class TestProofOverWire:
+    def test_node_serves_verifiable_proof(self):
+        from test_torch_node import _config, wait_until
+
+        from p1_tpu_torch.node import Node
+        from p1_tpu_torch.node.client import get_proof, send_tx
+
+        NODE_DIFF = 12
+
+        async def scenario():
+            node = Node(_config(difficulty=NODE_DIFF))
+            await node.start()
+            try:
+                # Earn a balance, then confirm a spend of it.
+                from test_torch_node import fund
+
+                await fund(node, "alice", blocks=1)
+                spend = stx(
+                    "alice", account("bob"), 10, 1, 0, difficulty=NODE_DIFF
+                )
+                await send_tx("127.0.0.1", node.port, spend, NODE_DIFF)
+                await wait_until(lambda: len(node.mempool) == 1)
+                start = node.chain.height
+                node.start_mining()
+                assert await wait_until(
+                    lambda: node.chain.tx_proof(spend.txid()) is not None
+                )
+                await node.stop_mining()
+                proof = await get_proof(
+                    "127.0.0.1", node.port, spend.txid(), NODE_DIFF
+                )
+                assert proof is not None
+                verify_tx_proof(
+                    proof,
+                    NODE_DIFF,
+                    genesis_hash(NODE_DIFF),
+                    txid=spend.txid(),
+                )
+                # Unconfirmed txid: clean not-found.
+                missing = await get_proof(
+                    "127.0.0.1", node.port, b"\x42" * 32, NODE_DIFF
+                )
+                assert missing is None
+            finally:
+                await node.stop()
+
+        asyncio.run(asyncio.wait_for(scenario(), timeout=60))

@@ -9,8 +9,8 @@ same chain, snapshot files and ``state_root`` are byte-identical, a file
 written by either loads in the other, and damaged files get the same
 verdicts.
 
-Waiting for the node slice (they run the simulator and hostile peers):
-test_snapshot.py's ``TestNodePlane``.
+Waiting for the simulation plane (ROADMAP Queue A item 7c; every case
+runs ``SimNet``): test_snapshot.py's ``TestNodePlane``.
 """
 
 import os

@@ -14,9 +14,10 @@ the two packages to each other: the same blocks give byte-identical
 stores, segment files, ``.hdrx`` and ``.sdx`` sidecars, and a store written
 by either loads in the other to the same state.
 
-Waiting for the node slice (they run a ``Node`` or ``SimNet``):
-test_storefault.py's ``TestNodeDegradation`` and test_segstore.py's
-``TestSegmentEIO``.  test_headerplane.py's 1M-block acceptance
+test_storefault.py's ``TestNodeDegradation`` runs on the port's ``Node``
+(its ENOSPC case is ``slow``, as in the reference).  Waiting for the
+simulation plane (ROADMAP Queue A item 7c; it runs ``SimNet``):
+test_segstore.py's ``TestSegmentEIO``.  test_headerplane.py's 1M-block acceptance
 (``test_archive_scale_acceptance_1m``, slow) is a benchmark-scale run and
 is not mirrored.
 """
@@ -52,7 +53,9 @@ from p1_tpu_torch.chain.segstore import DEFAULT_SEGMENT_BYTES, SegmentInfo
 from p1_tpu_torch.chain.store import MAGIC, V2_MAGIC
 from p1_tpu_torch.chain.testing import FaultStore, SegFaultStore, StoreFaultPlan
 from p1_tpu_torch.core.hashutil import sha256d
-from p1_tpu_torch.node.testing import make_blocks
+from p1_tpu_torch.node import Node
+from p1_tpu_torch.node.testing import FaultPlan, HostilePeer, make_blocks
+from test_torch_node import _config, run, wait_until
 
 DIFF = 12  # tests/test_node.py's
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -1269,3 +1272,159 @@ class TestCrossPackage:
         finally:
             port.close()
             ref.close()
+
+
+class TestNodeDegradation:
+    @pytest.mark.slow
+    def test_enospc_degrades_serves_and_recovers(self, tmp_path):
+        """End-to-end acceptance: a node whose disk fills mid-sync (a)
+        enters degraded serve-only mode without dropping the peer
+        connection, (b) still answers headers queries, and (c) resumes
+        persisting + catches back up once space returns.
+
+        Slow smoke: the tier-1 copy of this e2e runs on
+        SimNet at PRODUCTION backoff deadlines in milliseconds of wall
+        time (tests/test_chaos.py TestStoreRecoverySim) — this socket
+        variant keeps the real-kernel path covered, same migration
+        pattern as the stall-failover port."""
+
+        async def scenario():
+            chain_blocks = make_blocks(10, difficulty=DIFF)
+            peer = HostilePeer(chain_blocks, plan=FaultPlan(batch_limit=2))
+            await peer.start()
+            # Write #1 = magic, writes #2..4 = records: the 4th record
+            # append hits persistent ENOSPC mid-IBD.
+            store = FaultStore(
+                tmp_path / "victim.dat",
+                plan=StoreFaultPlan(fail_writes_from=5),
+            )
+            node = Node(
+                _config(
+                    peers=[f"127.0.0.1:{peer.port}"],
+                    store_path=str(tmp_path / "victim.dat"),
+                    sync_stall_timeout_s=0.5,
+                    sync_backoff_base_s=0.05,
+                    sync_backoff_max_s=0.2,
+                ),
+                store=store,
+            )
+            await node.start()
+            try:
+                # (a) the store fails on record 4; the node degrades.
+                assert await wait_until(lambda: node._store_degraded)
+                status = node.status()["storage"]
+                assert status["degraded"] is True
+                assert status["errors"] >= 1
+                assert node.metrics.store_errors >= 1
+                # The connection that delivered the fatal block is NOT
+                # unwound: the peer session survives the disk fault.
+                assert node.peer_count() == 1
+                height_frozen = node.chain.height
+                assert height_frozen < 10
+                # (b) serve-only: a light client still gets our headers.
+                from p1_tpu_torch.node.client import get_headers
+
+                headers = await get_headers(
+                    "127.0.0.1", node.port, DIFF, timeout=10.0
+                )
+                assert len(headers) == height_frozen + 1
+                # Blocks pushed while degraded are deferred, not taken.
+                assert node.chain.height == height_frozen
+                # (c) space returns: the recovery loop flushes pending
+                # records, clears the flag, and backfills to the full
+                # advertised chain.
+                store.clear_faults()
+                assert await wait_until(
+                    lambda: not node._store_degraded, timeout=10.0
+                )
+                assert node.metrics.store_recoveries == 1
+                assert await wait_until(
+                    lambda: node.chain.height == 10, timeout=20.0
+                )
+                # Everything accepted is durably on disk, in order.
+                assert await wait_until(
+                    lambda: len(ChainStore(store.path).load_blocks()) == 10
+                )
+                assert node.status()["storage"]["pending_records"] == 0
+            finally:
+                await node.stop()
+                await peer.stop()
+            # Restart on the recovered store: full resume, nothing torn.
+            revived = Node(
+                _config(store_path=str(tmp_path / "victim.dat"))
+            )
+            await revived.start()
+            try:
+                assert revived.chain.height == 10
+            finally:
+                await revived.stop()
+
+        run(scenario())
+
+    def test_store_degraded_exit_signals_fatal(self, tmp_path):
+        """The --store-degraded-exit escape hatch: the node signals the
+        CLI (store_fatal) instead of entering degraded mode."""
+
+        async def scenario():
+            chain_blocks = make_blocks(3, difficulty=DIFF)
+            peer = HostilePeer(chain_blocks)
+            await peer.start()
+            store = FaultStore(
+                tmp_path / "fatal.dat",
+                plan=StoreFaultPlan(fail_write_at=2),  # first record
+            )
+            node = Node(
+                _config(
+                    peers=[f"127.0.0.1:{peer.port}"],
+                    store_path=str(tmp_path / "fatal.dat"),
+                    store_degraded_exit=True,
+                ),
+                store=store,
+            )
+            await node.start()
+            try:
+                assert await wait_until(lambda: node.store_fatal.is_set())
+                assert node.status()["storage"]["degraded"] is True
+            finally:
+                await node.stop()
+                await peer.stop()
+
+        run(scenario())
+
+    def test_mining_pauses_while_degraded(self, tmp_path):
+        """A degraded miner stops sealing blocks (they could never be
+        persisted or honestly gossiped) and resumes after recovery."""
+
+        async def scenario():
+            store = FaultStore(
+                tmp_path / "miner.dat",
+                plan=StoreFaultPlan(fail_writes_from=4),  # after 2 blocks
+            )
+            node = Node(
+                _config(
+                    mine=True,
+                    store_path=str(tmp_path / "miner.dat"),
+                    sync_backoff_base_s=0.05,
+                    sync_backoff_max_s=0.2,
+                ),
+                store=store,
+            )
+            await node.start()
+            try:
+                assert await wait_until(lambda: node._store_degraded)
+                frozen = node.chain.height
+                import asyncio
+
+                await asyncio.sleep(0.8)
+                assert node.chain.height == frozen  # no sealing while down
+                store.clear_faults()
+                assert await wait_until(
+                    lambda: not node._store_degraded, timeout=10.0
+                )
+                assert await wait_until(
+                    lambda: node.chain.height > frozen, timeout=20.0
+                )
+            finally:
+                await node.stop()
+
+        run(scenario())

@@ -11,11 +11,11 @@ key files) must be byte-identical.  The port's store commands run with
 ``--device cpu``: the device signature rung on its plain PyTorch version.
 Without a card and without ``--device cpu`` an untrusted load raises.
 
-Waiting for the node slice (they run a node or its wire protocol):
 test_cli.py's ``node``, ``net``, ``tx``, ``status``, ``metrics``,
-``account``, ``fees``, ``proof``, ``headers``, ``watch``, ``maintain`` and
-``serve`` cases, and test_chain.py's ``TestCompact`` cases that hold a
-node's writer lock.
+``account``, ``fees``, ``proof``, ``headers``, ``watch`` and ``maintain``
+cases are in tests/test_torch_cli.py, test_chain.py's ``TestCompact``
+in tests/test_torch_chain.py.  Waiting for the serving plane (ROADMAP
+Queue A item 7c): the ``serve`` cases.
 """
 
 import json
