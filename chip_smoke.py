@@ -5,12 +5,15 @@
 
 Drives the port's paths, ``mine``, ``replay``, signature validation
 (``check_block`` under the ``device`` rung), the untrusted load of a
-chain store, a node and the 4-node net, on the GPU in phases, one JSON
-line each, and fails (non-zero exit, no last line) if any phase fails:
+chain store, a node and the 4-node net, and the native host tier, on the
+GPU and its host in phases, one JSON line each, and fails (non-zero exit,
+no last line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
    ``p1_tpu_torch/hashx/csrc/sha256d_search.cu`` with ``nvcc`` for
    ``sm_90a``, its registers and local-memory (spill) bytes, its SASS count;
+   the native host core built from ``p1_tpu_torch/native/*.cpp`` with one
+   ``g++`` beside the ``nvcc`` runs (``native_build_s``);
 2. kernel vs plain version — raw steps of ``cuda_search_fn`` against
    ``torch_sha256.search_step`` on the card, on seeded headers at
    difficulty 0/8/16/64, nonce bases 0, 0x1000 and 0xFFFFF000 (wrap), at
@@ -85,16 +88,18 @@ line each, and fails (non-zero exit, no last line) if any phase fails:
    counted: 5 again) and as
    ``python -m p1_tpu_torch balances`` (exit 0, the same JSON); one
    signature flipped in the record at height 300 with its CRC fixed: the
-   untrusted load stops at height 299, as the serial pure-Python lane's
-   load does.
+   untrusted load stops at height 299, as the serial lane's load (every
+   transfer verified alone, on the native rung) does.
 11. node — ``python -m p1_tpu_torch node`` processes on the card (each
    logs its kernel wrappers' launch counts at exit, which the phase reads):
    (a) ``--no-mine --store S --revalidate-store --deadline stdin`` on phase
    10's store boots through the untrusted load (its status: the store's
    tip and height, 4,152 device signatures; 5 ``ed25519_msm`` launches),
-   then 200 signed transfers pushed down one session time its admission
-   (the serial pure-Python check, µs per transaction, on the sending side
-   and as the node logs it); (b) a second node
+   then 200 signed transfers pushed down one session, and a GETSTATUS
+   after them on the same session, time its admission (the serial check on
+   the native rung, µs per transaction, on the sending side and as the
+   node logs it; the node's ``validation.backends`` must have counted the
+   200 under ``native`` and none under ``pure-python``); (b) a second node
    with an empty store and ``--peers`` the first deep-syncs the chain and
    the pool (same tip, device signatures > 0, launches > 0); (c) a mining
    node at difficulty 20 for 10 s (``blocks_mined`` > 0, search launches
@@ -106,8 +111,21 @@ line each, and fails (non-zero exit, no last line) if any phase fails:
    the one card, on a block of ports free at run time: exit 0,
    ``converged`` and ``economy.ledger_conserved``; height, blocks mined,
    reorgs, propagation delay, transfers submitted and accepted, each
-   node's ``validation.backends``, launches, bans and admission drops, and
+   node's ``validation.backends`` (no signature on ``pure-python``; with
+   transfers, some on ``native``), launches, bans and admission drops, and
    its mean µs of pool admission per admitted transfer (logged at exit).
+13. native — the host tier on the card's host: the native library must
+   load and be the serial signature rung (else the phase fails: the
+   card's path never passes quietly on pure Python); ``has_shani``; the
+   native backend's first hit equal to the search kernel's and the plain
+   version's on phase 2's fixtures, in both compressions
+   (``force_scalar``); ``replay --n 10000 --difficulty 16 --method all
+   --device cuda`` through ``cli.main`` (exit 0; host, native and
+   ``verify_chain.cu`` valid, each with its headers/s; its search and
+   verify launches counted); native, host and device naming the same first
+   invalid header on phase 6's corruptions; µs per signature of a serial
+   native verify, a 1,024 native batch and the device rung on the same
+   triples (``sig_verify.bench_native``).
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -115,14 +133,17 @@ measured, at the larger of ``clocks.max.sm`` and the SM clock phase 5
 measured; the white paper's bound rides beside it.  Then the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without
 a CUDA device it exits 2.  The four kernel sources are built at the start,
-one ``nvcc`` each, all at once; a node child loads what is built.  The
-``launches`` of ``sha256d_search`` and ``ed25519_msm`` add phases 11 and
-12's children to this process's paths (``launches_node``,
-``launches_net`` beside them).
+one ``nvcc`` each, all at once, with the native library's ``g++``; a node
+child loads what is built.  The ``launches`` of ``sha256d_search`` and
+``ed25519_msm`` add phases 11 and 12's children to this process's paths
+(``launches_node``, ``launches_net`` beside them); phase 13's replay
+launches ride beside the search and verify kernels' totals
+(``launches_native_replay``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -478,7 +499,6 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
     )
     from p1_tpu_torch.core import target_from_difficulty, target_to_words
     from p1_tpu_torch.hashx import cuda_backend, get_backend
-    from p1_tpu_torch.miner import Miner
 
     # The kernel vs the plain version on seeded fixtures.
     rng = np.random.default_rng(6)
@@ -566,24 +586,8 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
           "verify_grid": [cuda_verify.blocks_for(REPLAY_N), cuda_verify.THREADS]})  # fmt: skip
 
     # Corruptions of header i: host oracle and device kernel must name i.
-    miner = Miner(backend=get_backend("cuda"))
-
-    def flip(h):
-        return h.with_nonce(h.nonce ^ 1)
-
-    def reparent(h):  # re-mined onto its grandparent
-        return miner.search_nonce(dataclasses.replace(h.with_nonce(0), prev_hash=headers[698].block_hash()))
-
-    corruptions = [
-        ("nonce 37", 37, flip), ("nonce 8191", 8191, flip), ("nonce 8192", 8192, flip),
-        ("difficulty 5000", 5000, lambda h: dataclasses.replace(h, difficulty=17)),
-        ("re-parent 700", 700, reparent),
-        ("genesis prev-hash", 0, lambda h: dataclasses.replace(h, prev_hash=b"\x01" + bytes(31))),
-    ]  # fmt: skip
     flagged = {}
-    for name, i, corrupt in corruptions:
-        bad = list(headers)
-        bad[i] = corrupt(bad[i])
+    for name, i, bad in replay_corruptions(headers):
         host, device = replay_host(bad), replay_device(bad)
         if not host.first_invalid == device.first_invalid == i:
             raise AssertionError(f"{name}: host {host.first_invalid}, device {device.first_invalid}")
@@ -651,6 +655,35 @@ def phase_replay(cuda_verify, sass, sms: int, peak: Rate, white_paper: Rate) -> 
         "bound_ms_white_paper": max(t10k["ops_bound_ms_white_paper"], t10k["bytes_bound_ms"]),
         "ms_2p20": t2p20["ms"], "bound_ms_2p20": t2p20["bound_ms"],
     }, search_launches  # fmt: skip
+
+
+def replay_corruptions(headers) -> list[tuple[str, int, list]]:
+    """Phase 6's corruptions of the 10,000-header chain: (name, the index
+    every engine must name, the corrupted chain).  The re-parented header
+    is re-mined on the card."""
+    from p1_tpu_torch.hashx import get_backend
+    from p1_tpu_torch.miner import Miner
+
+    miner = Miner(backend=get_backend("cuda"))
+
+    def flip(h):
+        return h.with_nonce(h.nonce ^ 1)
+
+    def reparent(h):  # re-mined onto its grandparent
+        return miner.search_nonce(dataclasses.replace(h.with_nonce(0), prev_hash=headers[698].block_hash()))
+
+    corruptions = [
+        ("nonce 37", 37, flip), ("nonce 8191", 8191, flip), ("nonce 8192", 8192, flip),
+        ("difficulty 5000", 5000, lambda h: dataclasses.replace(h, difficulty=17)),
+        ("re-parent 700", 700, reparent),
+        ("genesis prev-hash", 0, lambda h: dataclasses.replace(h, prev_hash=b"\x01" + bytes(31))),
+    ]  # fmt: skip
+    out = []
+    for name, i, corrupt in corruptions:
+        bad = list(headers)
+        bad[i] = corrupt(bad[i])
+        out.append((name, i, bad))
+    return out
 
 
 def compressed(m, e, limbs) -> "np.ndarray":
@@ -1007,7 +1040,7 @@ def phase_revalidate(kernel) -> dict:
         tampered_launches = kernel.launches
         old = keys.BATCH_MIN, store_mod._preverify_stream
         keys.BATCH_MIN, store_mod._preverify_stream = 1 << 30, lambda blocks, tag, cache: blocks
-        try:  # the serial lane: every transfer verified alone, pure Python
+        try:  # the serial lane: every transfer verified alone, on the serial (native) rung
             serial, serial_s = load(trusted=False, sig_cache=SignatureCache())
         finally:
             keys.BATCH_MIN, store_mod._preverify_stream = old
@@ -1136,17 +1169,22 @@ def status_of(port: int, difficulty: int, tries: int = 5) -> dict:
 
 def measure_admission(port: int, chain, n: int = ADMIT_TXS) -> dict:
     """Push ``n`` signed transfers of the store's funded sender down one
-    session to the node at ``port`` and time, from the first frame, until
-    its ``txs_accepted`` has grown by ``n``: the node's admission (frame
-    decode, the serial pure-Python signature check, the pool) per
-    transaction, timed on the sending side."""
+    session to the node at ``port``, then a GETSTATUS on the same session,
+    and time from the first frame to its reply: the node handles a
+    session's frames in order, so the reply comes once every transfer has
+    been through admission (frame decode, the serial signature check on
+    the native rung, the pool), with no poll in the window.  Should the
+    reply show fewer than ``n`` admitted, the status is polled until it
+    does.  The node's ``validation.backends`` must have grown by ``n`` on
+    ``native`` and by none on ``pure-python``."""
     import asyncio
 
     from p1_tpu_torch.benchmarks.sig_verify import sign_many
     from p1_tpu_torch.core.keys import Keypair
     from p1_tpu_torch.core.tx import Transaction
     from p1_tpu_torch.node import protocol
-    from p1_tpu_torch.node.client import _session, get_status
+    from p1_tpu_torch.node.client import _read_msg, _session, get_status
+    from p1_tpu_torch.node.protocol import MsgType
 
     alice = Keypair.from_seed_text("host-ingest-alice")  # build_blocks' sender
     tag, seq0 = chain.genesis.block_hash(), chain.nonce(alice.account)
@@ -1155,23 +1193,31 @@ def measure_admission(port: int, chain, n: int = ADMIT_TXS) -> dict:
     frames = [protocol.encode_tx(dataclasses.replace(tx, pubkey=alice.pubkey, sig=sig))
               for tx, sig in zip(unsigned, sigs)]  # fmt: skip
 
-    async def push() -> tuple[float, dict]:
-        before = (await get_status("127.0.0.1", port, 1))["txs_accepted"]
-        async with _session("127.0.0.1", port, 1, None) as (_, writer, _hello):
+    async def push() -> tuple[dict, float, dict, int]:
+        before = await get_status("127.0.0.1", port, 1)
+        async with _session("127.0.0.1", port, 1, None) as (reader, writer, _hello):
             t0 = time.perf_counter()
             for frame in frames:
                 await protocol.write_frame(writer, frame)
-            while True:
-                status = await get_status("127.0.0.1", port, 1)
-                if status["txs_accepted"] - before >= n or time.perf_counter() - t0 > CHILD_TIMEOUT_S:
-                    return time.perf_counter() - t0, status
-                await asyncio.sleep(0.05)
+            await protocol.write_frame(writer, protocol.encode_getstatus())
+            while (reply := await _read_msg(reader, writer))[0] is not MsgType.STATUS:
+                pass
+            status, polls = reply[1], 0
+            deadline = t0 + CHILD_TIMEOUT_S
+            while status["txs_accepted"] - before["txs_accepted"] < n and time.perf_counter() < deadline:
+                await asyncio.sleep(0.005)
+                status, polls = await get_status("127.0.0.1", port, 1), polls + 1
+            return before, time.perf_counter() - t0, status, polls
 
-    wall_s, status = asyncio.run(push())
+    before, wall_s, status, polls = asyncio.run(push())
     if status["mempool"] != n:
         raise AssertionError(f"admission: {status['mempool']} of {n} transfers in the pool")
-    return {"txs": n, "wall_s": wall_s, "us_per_tx": 1e6 * wall_s / n,
-            "serial_verifies": status["validation"]["serial"]}  # fmt: skip
+    backends = {k: v - before["validation"]["backends"][k] for k, v in status["validation"]["backends"].items()}
+    if backends["native"] != n or backends["pure-python"] != 0:
+        raise AssertionError(f"admission of {n} transfers: {backends} signatures by rung, not all native")
+    return {"txs": n, "wall_s": wall_s, "us_per_tx": 1e6 * wall_s / n, "status_polls": polls,
+            "serial_verifies": status["validation"]["serial"], "validation_backends": backends,
+            "backend_label": status["validation"]["backend"]}  # fmt: skip
 
 
 def phase_node(built, device: str = "cuda", mine_difficulty: int = NODE_MINE_DIFFICULTY,
@@ -1308,6 +1354,10 @@ def phase_net(device: str = "cuda", net_args: tuple = NET_ARGS) -> dict:
     if device == "cuda" and not all(n.get("sha256d_search", 0) > 0 for n in launches):
         raise AssertionError(f"a net node launched the search kernel no time: {launches}")
     statuses = out["statuses"]
+    rungs = [s["validation"]["backends"] for s in statuses]
+    native_missing = out["economy"]["txs_accepted_total"] and not all(r["native"] for r in rungs)
+    if native_missing or any(r["pure-python"] for r in rungs):
+        raise AssertionError(f"net nodes' signatures by rung: {rungs}; serial work must run on the native rung")
     line = {"wall_s": wall_s, "height": out["height"], "blocks_mined_total": out["blocks_mined_total"],
             "reorgs_total": out["reorgs_total"], "propagation_delay_ms": out["propagation_delay_ms"],
             "txs_submitted": out["economy"]["txs_submitted"], "txs_failed": out["economy"]["txs_failed"],
@@ -1323,6 +1373,100 @@ def phase_net(device: str = "cuda", net_args: tuple = NET_ARGS) -> dict:
             "nodes": per_node, "launches": launches}  # fmt: skip
     emit({"phase": "net", **line})
     return line
+
+
+# -- phase 13: the native host tier ------------------------------------------
+
+
+def native_first_offset(backend, prefix: bytes, base: int, span: int, difficulty: int) -> int:
+    """The native backend's earliest hit in the ``span`` nonces from
+    ``base`` (wrapping past 2**32, as a kernel step does) as an offset, or
+    ``span``: the kernel step's contract."""
+    first = min(span, (1 << 32) - base)
+    res = backend.search(prefix, base, first, difficulty)
+    if res.nonce is not None:
+        return res.nonce - base
+    if first < span:
+        res = backend.search(prefix, 0, span - first, difficulty)
+        if res.nonce is not None:
+            return first + res.nonce
+    return span
+
+
+def phase_native(native_build_s: float, search_fn, batch: int) -> tuple[dict, dict]:
+    """Phase 13: the native host tier on the card's host.  The library
+    (``p1_tpu_torch/native/*.cpp``, one ``g++``, built in phase 1) must
+    load and be the serial signature rung; the native backend's first hit
+    equals the search kernel's and the plain version's on phase 2's
+    fixtures in both compressions; ``replay --method all`` at BASELINE
+    config 3 (host, native and ``verify_chain.cu`` agree; its search and
+    verify launches counted); the three engines name the same first
+    invalid header on phase 6's corruptions; µs per signature of the
+    native serial and batch rungs beside the device rung on the same
+    triples.  Returns the phase's line and its launches."""
+    from p1_tpu_torch import cli
+    from p1_tpu_torch.benchmarks.sig_verify import bench_native
+    from p1_tpu_torch.chain import parse_headers, replay_device, replay_host, replay_native
+    from p1_tpu_torch.core import _ed25519_native, keys
+    from p1_tpu_torch.hashx import cuda_backend, cuda_verify, get_backend, native_build
+    from p1_tpu_torch.hashx.torch_backend import _RAMP_FLOOR
+
+    keys.set_sig_backend(None)
+    if not _ed25519_native.available() or keys._serial_backend() != "native":
+        raise AssertionError(f"the native Ed25519 engine did not load: serial rung {keys._serial_backend()}")
+    native = get_backend("native")
+    has_shani, cases = native.has_shani, 0
+    for scalar in (False, True):  # the runtime-dispatched compression, then the portable one
+        native.force_scalar(scalar)
+        for span in (_RAMP_FLOOR, batch):
+            for seed, diff in enumerate((0, 8, 16, NO_HIT)):
+                if span == batch and diff == NO_HIT:
+                    continue  # a 2**26 host scan per base: the ramp-floor span covers the miss
+                prefix = prefix_for(seed, diff)
+                arrays = arrays_for(prefix, diff, "cuda")
+                for base in (0, 0x1000, 0xFFFFF000):
+                    got = native_first_offset(native, prefix, base, span, diff)
+                    kernel = int(search_fn(span)(arrays, base)[0])
+                    plain = plain_first_hit(arrays, base, span)
+                    if not got == kernel == plain:
+                        raise AssertionError(f"native {got}, kernel {kernel}, plain {plain} "
+                                             f"(span {span}, d{diff}, base {base:#x}, scalar {scalar})")  # fmt: skip
+                    cases += 1
+    native.force_scalar(False)
+
+    search, verify = cuda_backend.sha256d_search, cuda_verify.verify_chain
+    search.launches = verify.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out_file = pathlib.Path(tmp) / "headers.bin"
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["replay", "--n", str(REPLAY_N), "--difficulty", str(REPLAY_DIFFICULTY),
+                           "--method", "all", "--device", "cuda", "--out", str(out_file)])  # fmt: skip
+        cli_s = time.perf_counter() - t0
+        launches = {"sha256d_search": search.launches, "verify_chain": verify.launches}
+        line = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        headers = parse_headers(out_file.read_bytes())
+    methods = [r["method"] for r in line["results"]]
+    if rc != 0 or not line["valid"] or methods != ["host", "native", "device", "device"]:
+        raise AssertionError(f"replay --method all failed (exit {rc}): {line}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"replay --method all launched {launches}")
+    flagged = {}
+    for name, i, bad in replay_corruptions(headers):
+        got = (replay_native(bad).first_invalid, replay_host(bad).first_invalid, replay_device(bad).first_invalid)
+        if got != (i, i, i):
+            raise AssertionError(f"{name}: native, host, device first invalid {got}, expected {i}")
+        flagged[name] = i
+    sigs = bench_native(SIG_BATCH, device="cuda")
+    result = {"build_s": native_build_s, "library": native_build.library_path().name, "has_shani": has_shani,
+              "serial_rung": keys._serial_backend(), "backend_label": keys.backend_label(),
+              "search_cases": cases, "compressions": ["sha-ni" if has_shani else "scalar", "scalar"],
+              "replay": {**line, "exit": rc, "wall_s": cli_s, "launches": launches},
+              "replay_headers_per_s": {r["method"]: r["headers_per_sec"] for r in line["results"]},
+              "corruptions_first_invalid": flagged, "signatures": sigs}  # fmt: skip
+    emit({"phase": "native", **result})
+    return result, launches
 
 
 def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
@@ -1346,7 +1490,7 @@ def main() -> int:
     from p1_tpu_torch.cli import mine_chain, mine_report
     from p1_tpu_torch.core import genesis_header, meets_target
     from p1_tpu_torch.core.hashutil import sha256d
-    from p1_tpu_torch.hashx import cuda_ed25519, cuda_verify, get_backend, kernel_build, sass
+    from p1_tpu_torch.hashx import cuda_ed25519, cuda_verify, get_backend, kernel_build, native_build, sass
     from p1_tpu_torch.hashx import cuda_backend as cb
     from p1_tpu_torch.hashx.torch_backend import _RAMP_FLOOR
     from p1_tpu_torch.hashx.torch_sha256 import search_step
@@ -1362,12 +1506,21 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     white_paper = Rate(sass.ALU_PER_SM_CLK, sass.DISPATCH_PER_SM_CLK, max_sm_mhz)
     t_build = time.perf_counter()
-    builds = kernel_build.build_all([
-        (cb.SearchKernel.SOURCE, kernel_build.CSRC),
-        (vr.RooflineKernel.SOURCE, vr.RooflineKernel.CSRC),
-        (cuda_verify.VerifyKernel.SOURCE, kernel_build.CSRC),
-        (cuda_ed25519.Ed25519Kernel.SOURCE, kernel_build.CSRC),
-    ])  # fmt: skip
+
+    def build_native() -> float:  # the host core's g++, beside the four nvcc
+        t0 = time.perf_counter()
+        native_build.build_lib(force=True)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build_job = pool.submit(build_native)
+        builds = kernel_build.build_all([
+            (cb.SearchKernel.SOURCE, kernel_build.CSRC),
+            (vr.RooflineKernel.SOURCE, vr.RooflineKernel.CSRC),
+            (cuda_verify.VerifyKernel.SOURCE, kernel_build.CSRC),
+            (cuda_ed25519.Ed25519Kernel.SOURCE, kernel_build.CSRC),
+        ])  # fmt: skip
+        native_build_s = native_build_job.result()
     build_wall_s = time.perf_counter() - t_build
     built = kernel.built()
     regs, local_bytes = kernel.attributes()
@@ -1380,6 +1533,7 @@ def main() -> int:
         "build_s": round(builds[0].build_s, 3), "library": built.path.name,
         "build_wall_s": round(build_wall_s, 3),
         "builds": {b.path.name: round(b.build_s, 3) for b in builds},
+        "native_build_s": round(native_build_s, 3),
         "registers": regs, "local_bytes": local_bytes, "ptxas": spill_lines,
         "sass_instructions": sass_total, "sass_alu_instructions": sass_alu,
         "sass_opcodes": sass.opcode_histogram(search_insns),
@@ -1504,6 +1658,10 @@ def main() -> int:
     ed25519["launches"] += ed25519["launches_node"] + ed25519["launches_net"]
     search_node = sum(n.get("sha256d_search", 0) for n in node_children)
     search_net = sum(n.get("sha256d_search", 0) for n in net["launches"])
+
+    # -- 13. the native host tier, and replay --method all -----------------
+    _, native_launches = phase_native(native_build_s, lambda span: cb.cuda_search_fn(span, sub, threads), batch)
+    verify["launches_native_replay"] = native_launches["verify_chain"]
     ed25519["revalidate"] = {k: revalidate[k] for k in ("blocks", "signatures", "untrusted_s", "blocks_per_s", "us_per_sig")}
 
     print(json.dumps({"kernels": [
@@ -1517,6 +1675,7 @@ def main() -> int:
             "bound_ms_white_paper": bound_wp_ms, "bound_ms_measured_rate": bound_measured_ms,
             "launches_mine": launches, "launches_replay": search_launches,
             "launches_node": search_node, "launches_net": search_net,
+            "launches_native_replay": native_launches["sha256d_search"],
         },
         roof,
         verify,

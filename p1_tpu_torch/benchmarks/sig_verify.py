@@ -4,21 +4,27 @@
         [--device-batch 1024] [--device cpu] [--store-blocks N] [--against CHECKOUT]
 
 The port of ``benchmarks/sig_verify.py``.  ``bench_micro`` times the rungs
-the port has (``core/keys.py``): serial verifies (pure-Python),
-``keys.verify_batch`` on the default ``device`` rung, and the verify-once
-cache.  ``bench_device`` then times ``verify_batch_device`` on one card
-at ``--device-batch`` signatures (default 1024 = ``keys.BATCH_CHUNK``)
-and at every ``--batch-sizes`` entry, as µs per signature end to end and
-its split into host prep (parse, SHA-512, coefficients, dedup, the
-encoding and scalar words), copy in, the kernels (decompression, gate and
-MSM; CUDA events), read back and host close.  Both need a card and raise
-without one; ``--device cpu`` runs ``bench_micro`` with the device rung on
-the plain PyTorch version and has no device rows.  (``--device`` alone, or ``--device cuda``, is
-the default.)  ``--store-blocks N`` adds ``bench_revalidate``: an N-block
-store of two signed transfers a block (``host_ingest.build_blocks``),
-loaded untrusted serially (the pure-Python rung, one verify per transfer),
-on the active batch rung, with the cache warm, and trusted.  Prints one
-JSON line, then (on the card) the card's name and power limit.
+the port has (``core/keys.py``): serial verifies (the native rung where it
+builds, else pure Python), ``keys.verify_batch`` on the default ``device``
+rung, and the verify-once cache.  ``bench_native`` puts the two host rungs
+beside the card on one set of triples: a serial native verify, a
+``--device-batch`` native batch (``_ed25519_native``), a serial
+pure-Python verify, and ``verify_batch_device`` on the same batch, each in
+µs per signature.  ``bench_device`` then times ``verify_batch_device`` on
+one card at ``--device-batch`` signatures (default 1024 =
+``keys.BATCH_CHUNK``) and at every ``--batch-sizes`` entry, as µs per
+signature end to end and its split into host prep (parse, SHA-512,
+coefficients, dedup, the encoding and scalar words), copy in, the kernels
+(decompression, gate and MSM; CUDA events), read back and host close.
+Both need a card and raise without one; ``--device cpu`` runs
+``bench_micro`` and ``bench_native`` with the device rung on the plain
+PyTorch version and has no device rows.  (``--device`` alone, or
+``--device cuda``, is the default.)  ``--store-blocks N`` adds
+``bench_revalidate``: an N-block store of two signed transfers a block
+(``host_ingest.build_blocks``), loaded untrusted serially (the serial
+rung, one verify per transfer), on the active batch rung, with the cache
+warm, and trusted.  Prints one JSON line, then (on the card) the card's
+name and power limit.
 
 With ``--against``, the checkout at CHECKOUT (a directory that holds
 ``p1_tpu_torch``, e.g. ``git archive <commit> | tar -x -C build/parent``)
@@ -136,7 +142,7 @@ def bench_micro(batch_sizes=(64, 256, 1024, 4096), serial_n: int = 64) -> dict:
     from p1_tpu_torch.core.tx import Transaction
 
     active = keys.backend()
-    out: dict = {"backend": active}
+    out: dict = {"backend": active, "serial_backend": keys._serial_backend()}
     triples = make_triples(max((serial_n, *batch_sizes)))
     serial = triples[:serial_n]
     out["serial_us"] = 1e6 / _rate(lambda: all(keys.verify(*t) for t in serial), serial_n)
@@ -160,6 +166,43 @@ def bench_micro(batch_sizes=(64, 256, 1024, 4096), serial_n: int = 64) -> dict:
         tx.verify_signature(cache=cache)  # populate
     out["cached_us"] = 1e6 / _rate(lambda: all(tx.verify_signature(cache=cache) for tx in txs), len(txs))
     return out
+
+
+def bench_native(batch: int = 1024, serial_n: int = 64, device: str = "cuda", repeats: int = 3) -> dict:
+    """µs per signature of the host rungs and the card on one set of
+    triples: ``serial_n`` serial native verifies, one native batch of
+    ``batch``, ``serial_n // 4`` serial pure-Python verifies, and
+    ``verify_batch_device`` on the same batch (``device``: the card, or
+    the plain version on the CPU).  Raises if the native engine does not
+    load or any verdict is not True."""
+    from p1_tpu_torch.core import _ed25519, _ed25519_native
+    from p1_tpu_torch.hashx import ed25519_msm
+
+    if not _ed25519_native.available():
+        raise RuntimeError("bench_native: the native Ed25519 engine did not build or load")
+    triples = make_triples(max(batch, serial_n))
+    serial, window = triples[:serial_n], triples[:batch]
+    py_serial = serial[: max(1, serial_n // 4)]
+    verdicts = [
+        all(_ed25519_native.verify(*t) for t in serial),
+        _ed25519_native.verify_batch(window),
+        all(_ed25519.verify(*t) for t in py_serial),
+        ed25519_msm.verify_batch_device(window, device=device),  # warm: loads the library
+    ]
+    if not all(verdicts):
+        raise AssertionError(f"a valid set failed: {verdicts}")
+
+    def us(fn, n: int) -> float:
+        return 1e6 / _rate(fn, n, repeats)
+
+    return {
+        "native_impl": _ed25519_native.impl(),
+        "native_serial_us": us(lambda: all(_ed25519_native.verify(*t) for t in serial), serial_n),
+        f"native_batch{batch}_us": us(lambda: _ed25519_native.verify_batch(window), batch),
+        "pure_python_serial_us": us(lambda: all(_ed25519.verify(*t) for t in py_serial), len(py_serial)),
+        f"device_batch{batch}_us": us(lambda: ed25519_msm.verify_batch_device(window, device=device), batch),
+        "device": device,
+    }
 
 
 def device_split(triples, repeats: int = 3) -> dict:
@@ -230,7 +273,7 @@ def bench_revalidate(n_blocks: int, repeats: int = 3) -> dict:
     """Store revalidation three ways (median of ``repeats`` each), and the
     trusted resume: ``revalidate_serial_s`` disables the fast lane (no
     pre-verification window, every transfer verified alone on the
-    pure-Python rung), ``revalidate_batch_s`` runs it on the active batch
+    serial rung), ``revalidate_batch_s`` runs it on the active batch
     rung (the card's under ``device``), ``revalidate_cached_s`` with every
     signature already in the cache."""
     from p1_tpu_torch.benchmarks.host_ingest import build_blocks
@@ -366,6 +409,7 @@ def main(argv: list[str] | None = None) -> int:
 
     keys.set_sig_backend("device", device=args.device)
     result = bench_micro(tuple(args.batch_sizes))
+    result.update(bench_native(args.device_batch, device=args.device))
     if args.store_blocks:
         result.update(bench_revalidate(args.store_blocks))
     if args.device == "cuda":

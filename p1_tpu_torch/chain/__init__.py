@@ -18,6 +18,7 @@ from p1_tpu_torch.chain.replay import (
     replay_device,
     replay_fast,
     replay_host,
+    replay_native,
     replay_packed,
 )
 from p1_tpu_torch.chain.snapshot import (
@@ -81,6 +82,7 @@ __all__ = [
     "replay_device",
     "replay_fast",
     "replay_host",
+    "replay_native",
     "replay_packed",
     "save_chain",
 ]

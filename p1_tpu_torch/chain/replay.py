@@ -4,16 +4,15 @@ The port of ``p1_tpu/chain/replay.py``: "chain replay: verify 10k-block
 header chain (hash-only, no mining)".  ``generate_headers`` mines the
 chain through the port's ``Miner`` (on the card by default);
 ``replay_host`` is the hashlib oracle, retarget rules included;
-``replay_device`` verifies PoW, declared difficulty and prev-hash linkage
-of the whole chain in one launch of ``hashx/csrc/verify_chain.cu``, or
-with its plain PyTorch version when the caller asks for the CPU.
+``replay_native`` runs the same rules in one call of the C++ host engine
+(``native/sha256d.cpp``, SHA-NI where the CPU has it); ``replay_device``
+verifies PoW, declared difficulty and prev-hash linkage of the whole
+chain in one launch of ``hashx/csrc/verify_chain.cu``, or with its plain
+PyTorch version when the caller asks for the CPU.
 
 ``replay_fast`` and ``replay_packed`` are the entries the light client
-and the store tools call (``chain/headerplane.py``, ``chain/tooling.py``).
-The JAX package runs them on its C++ SHA-NI host engine when it builds
-and on ``replay_host`` otherwise; that engine (``replay_native``) is not
-in the port yet (ROADMAP Queue A item 11), so here both are
-``replay_host``.
+and the store tools call (``chain/headerplane.py``, ``chain/tooling.py``):
+the native engine where it builds, ``replay_host`` where it does not.
 """
 
 from __future__ import annotations
@@ -168,26 +167,89 @@ def replay_host(headers: list[BlockHeader], retarget=None) -> ReplayReport:
     )
 
 
+def replay_native(headers: list[BlockHeader], retarget=None) -> ReplayReport:
+    """C++ verification engine: one ctypes call over the packed headers
+    (SHA-NI compressions, no per-header Python), the same rules as
+    ``replay_host`` (its oracle), including the contextual difficulty
+    schedule and timestamp rules of retargeting chains
+    (``p1_verify_chain_retarget``).  Packing is inside the timer, as
+    ``replay_host`` pays per-header serialization in its own."""
+    from p1_tpu_torch.hashx.native_backend import (
+        verify_header_chain,
+        verify_header_chain_retarget,
+    )
+
+    difficulty = headers[0].difficulty if headers else 0
+    t0 = time.perf_counter()
+    raw = pack_headers(headers)
+    if retarget is None:
+        first_invalid = verify_header_chain(raw, len(headers), difficulty)
+    else:
+        first_invalid = verify_header_chain_retarget(raw, len(headers), retarget)
+    return ReplayReport(
+        len(headers), first_invalid is None, first_invalid, time.perf_counter() - t0, "native"
+    )
+
+
+def _probe_native() -> None:
+    """Force the C library load NOW: ``native_backend._lib()`` builds (or
+    finds) the library and binds every symbol the wrapper uses, so every
+    environment failure — no toolchain (``NativeBuildError``), unloadable
+    object (``OSError``), stale symbol table (``AttributeError`` from
+    ctypes, surfacing deliberately) — fires here, in a scope where the
+    caller knows exactly what it is excusing."""
+    from p1_tpu_torch.hashx import native_backend
+
+    native_backend._lib()
+
+
 def replay_fast(headers: list[BlockHeader], retarget=None) -> ReplayReport:
-    """The light-client entry point: the strongest engine the port has,
-    which is ``replay_host`` until the native engine comes (ROADMAP Queue
-    A item 11).  The JAX package gives the same answer, and the same
-    ``method``, on a host where its native library does not build."""
-    return replay_host(headers, retarget=retarget)
+    """The light-client entry point: the C++ engine, falling back to the
+    hashlib oracle when the native library cannot build (no toolchain).
+
+    The fallback excuses ENVIRONMENT failures only, and only from the
+    probe: ``replay_native`` itself runs outside any except scope, so a
+    genuine wrapper bug (bad argtypes, a broken ``ReplayReport``
+    construction, an AttributeError past the load) crashes loudly instead
+    of silently degrading every light-client verification to the host
+    path."""
+    from p1_tpu_torch.hashx.native_build import NativeBuildError
+
+    try:
+        _probe_native()
+    except (NativeBuildError, OSError):
+        return replay_host(headers, retarget=retarget)
+    return replay_native(headers, retarget=retarget)
 
 
 def replay_packed(raw: bytes, retarget=None) -> ReplayReport:
     """Verify a header chain straight from its packed wire/disk buffer
-    (header files, store exports, a segment's ``.hdrx`` blob): a batch
-    parse, then ``replay_host``, as the JAX package does on a host without
-    its native engine (ROADMAP Queue A item 11)."""
+    (header files, store exports, a segment's ``.hdrx`` blob): the buffer
+    goes to the native verifier in one ctypes call with no object parse;
+    only the no-toolchain fallback pays a batch parse before
+    ``replay_host``."""
     n = len(raw) // HEADER_SIZE
     if len(raw) != n * HEADER_SIZE or n == 0:
         raise ValueError(
             f"packed header buffer must be a non-empty multiple of "
             f"{HEADER_SIZE} bytes"
         )
-    return replay_host(parse_headers(raw), retarget=retarget)
+    from p1_tpu_torch.hashx.native_build import NativeBuildError
+
+    try:
+        from p1_tpu_torch.hashx.native_backend import (
+            verify_header_chain,
+            verify_header_chain_retarget,
+        )
+
+        t0 = time.perf_counter()
+        if retarget is None:
+            first_invalid = verify_header_chain(raw, n, int.from_bytes(raw[72:76], "big"))
+        else:
+            first_invalid = verify_header_chain_retarget(raw, n, retarget)
+        return ReplayReport(n, first_invalid is None, first_invalid, time.perf_counter() - t0, "native")
+    except (NativeBuildError, OSError, AttributeError):
+        return replay_host(parse_headers(raw), retarget=retarget)
 
 
 def replay_device(

@@ -4,8 +4,8 @@ The port's copy of ``p1_tpu/chain/validate.py``: ``check_block`` and
 ``preverify_signatures`` give the same verdicts and the same error text.
 Their signature batches run on the card (``hashx/ed25519_msm.py``, the
 ``device`` rung ``core/keys.py`` resolves to) unless the caller pins the
-plain version (``keys.set_sig_backend("device", device="cpu")``) or the
-pure-Python rung.
+plain version (``keys.set_sig_backend("device", device="cpu")``), the
+native C++ rung or the pure-Python one.
 
 Capability parity: the reference's "chain-validation code paths"
 (BASELINE.json:5).  Rules enforced here need no chain context beyond the

@@ -50,7 +50,9 @@ import time
 def _add_common(p: argparse.ArgumentParser, device_choices=None) -> None:
     p.add_argument("--difficulty", type=int, default=16)
     p.add_argument(
-        "--backend", default="cuda", help="hash backend registry name (cuda, cpu)"
+        "--backend",
+        default="cuda",
+        help="hash backend registry name (cuda; host only: cpu, numpy, native)",
     )
     p.add_argument("--batch", type=int, default=None, help="device batch override")
     p.add_argument(
@@ -156,9 +158,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--method",
         choices=["host", "native", "device", "both", "all"],
         default="both",
-        help="verification engine(s): host=hashlib oracle, device=one kernel "
-        "launch on --device; both=host+device (native and all wait for a "
-        "later slice of the port)",
+        help="verification engine(s): host=hashlib oracle, native=C++ "
+        "SHA-NI host engine, device=one kernel launch on --device; "
+        "both=host+device, all=every engine (host+native on a retargeting "
+        "chain)",
     )
     p.add_argument("--out", default=None, help="write generated headers here")
     p.add_argument("--verify", default=None, help="verify this header file instead")
@@ -213,10 +216,12 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["auto", "cryptography", "native", "fallback", "device"],
         help="Ed25519 verification backend: auto and device route "
         "batches to the device rung (the ed25519_msm kernel on the card, "
-        "or its plain version under --device cpu); native/cryptography "
-        "name rungs the port does not have (a warning, then auto); "
-        "fallback forces pure Python.  Never changes validation "
-        "outcomes, only the cost model",
+        "or its plain version under --device cpu) and serial verifies to "
+        "the native C++ engine (pure Python without a toolchain); native "
+        "runs batches on that engine too (a warning, then auto, where it "
+        "does not build); cryptography names a rung the port does not "
+        "have (a warning, then auto); fallback forces pure Python.  Never "
+        "changes validation outcomes, only the cost model",
     )
     p.add_argument(
         "--store-degraded-exit",
@@ -863,27 +868,25 @@ def cmd_sweep(args) -> int:
 
 
 def cmd_replay(args) -> int:
-    from p1_tpu_torch.chain import generate_headers, parse_headers, replay_device, replay_host
+    from p1_tpu_torch.chain import (
+        generate_headers,
+        parse_headers,
+        replay_device,
+        replay_host,
+        replay_native,
+    )
     from p1_tpu_torch.core.genesis import genesis_hash
     from p1_tpu_torch.core.header import HEADER_SIZE
     from p1_tpu_torch.hashx import get_backend
 
-    if args.method in ("native", "all"):
-        print(
-            "the native (C++ SHA-NI) replay engine is not ported yet: it waits "
-            "for the slice that ports replay_native/replay_fast/replay_packed; "
-            "use --method host, device or both",
-            file=sys.stderr,
-        )
-        return 2
     rule = _retarget_rule(args)
     if rule is not None and args.method in ("device", "both"):
-        # The host oracle is retarget-aware; the device kernel implements
-        # the benchmark-config form (one target for the whole chain) and
-        # would mis-report an honest retargeting chain as invalid at the
-        # first adjustment.
+        # The host oracle and the C++ engine are retarget-aware; the device
+        # kernel implements the benchmark-config form (one target for the
+        # whole chain) and would mis-report an honest retargeting chain as
+        # invalid at the first adjustment.
         print(
-            "retargeting chains verify with --method host "
+            "retargeting chains verify with --method host/native/all "
             "(the device engine is fixed-difficulty)",
             file=sys.stderr,
         )
@@ -917,9 +920,14 @@ def cmd_replay(args) -> int:
                     fh.write(h.serialize())
 
     reports = []
-    if args.method in ("host", "both"):
+    if args.method in ("host", "both", "all"):
         reports.append(replay_host(headers, retarget=rule))
-    if args.method in ("device", "both"):
+    if args.method in ("native", "all"):
+        reports.append(replay_native(headers, retarget=rule))
+    if args.method in ("device", "both", "all") and rule is None:
+        # Fixed-difficulty only (the guard above refuses explicit device
+        # requests on retargeting chains; `all` covers what can run there:
+        # host + native).
         reports.append(replay_device(headers, device=args.device))
         reports.append(replay_device(headers, device=args.device))  # warm (build amortized)
     ok = all(r.valid for r in reports)

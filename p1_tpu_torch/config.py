@@ -149,9 +149,10 @@ class NodeConfig:
     #: Signature-verification backend (core/keys.py ladder).  "auto"
     #: (default) and "device" send batches to the ``device`` rung
     #: (hashx/ed25519_msm.py: the ``ed25519_msm.cu`` kernel, or its
-    #: plain version under ``device="cpu"``); "cryptography"/"native"
-    #: name rungs the port does not have (a warning, then auto);
-    #: "fallback" forces the pure-Python tier.  Backend choice NEVER changes
+    #: plain version under ``device="cpu"``) and serial verifies to the
+    #: native C++ engine where it builds; "native" runs batches on that
+    #: engine too; "cryptography" names a rung the port does not have (a
+    #: warning, then auto); "fallback" forces the pure-Python tier.  Backend choice NEVER changes
     #: validation outcomes — every rung is verdict- and error-text-
     #: equivalent by test — only the cost model.
     sig_backend: str = "auto"

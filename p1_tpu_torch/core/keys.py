@@ -14,25 +14,28 @@ What differs is which rungs exist and where ``auto`` goes:
   the port does not degrade: with no card the batch raises.  The plain
   PyTorch version runs only when the caller asks for it with
   ``set_sig_backend("device", device="cpu")``.  Serial verifies (and
-  batches under ``BATCH_MIN``) run on the pure-Python rung.
-- **``pure-python``** (``core/_ed25519.py``): the serial rung, and the
-  batch rung only when forced (``set_sig_backend("fallback")`` or
-  ``P1_SIG_BACKEND=pure-python``).
+  batches under ``BATCH_MIN``) take the rung beneath: ``native`` where
+  it loads, else ``pure-python``.
+- **``native``** (``core/_ed25519_native.py`` + ``native/ed25519.cpp``,
+  the JAX package's C++ host engine, built with ``g++`` on first use):
+  the serial rung wherever it builds — mempool admission, ``first_invalid``'s
+  serial settling, small batches.  Pinned (``set_sig_backend("native")``),
+  it also runs every batch on the host (its subgroup-gated Pippenger
+  MSM); without a toolchain a pin warns once and resolves ``auto``.
+- **``pure-python``** (``core/_ed25519.py``): the serial rung on a host
+  where the native engine does not build, and the batch rung only when
+  forced (``set_sig_backend("fallback")`` or ``P1_SIG_BACKEND=pure-python``).
 - **``cryptography``**: the port imports ``torch``, numpy and the standard
   library only, so the wheel's rung is unavailable here, as it is in
   ``p1_tpu`` on a host without the wheel.  Asking for it warns once and
   resolves ``auto``.
-- **``native``** (the JAX package's C++ host engine,
-  ``core/_ed25519_native.py`` + ``native/ed25519.cpp``) is not ported yet
-  (ROADMAP Queue A item 11) and resolves as unavailable, as in ``p1_tpu``
-  on a host without a compiler.
-- The JAX package's worker pool is not carried: the pure-Python batch
-  holds the GIL for its whole MSM and the device rung orders its launches
-  on the card's stream, so neither rung gains from one.  Its knob stays
-  (``set_verify_workers`` / ``verify_workers``, and
-  ``shutdown_verify_pool`` as a no-op): the node sizes it from
-  ``--verify-workers`` / ``--pipeline-workers`` and reports the size in
-  ``status()["validation"]["workers"]``, as the JAX package's node does.
+- The JAX package's worker pool is carried for the native rung only:
+  ctypes releases the GIL around a native batch call, so a pinned
+  ``native`` batch's chunks go to a thread pool when ``verify_workers()``
+  is above 1 (the node sets it from ``--verify-workers`` /
+  ``--pipeline-workers``; unpinned it is 1).  The pure-Python batch holds
+  the GIL for its whole MSM and the device rung orders its launches on
+  the card's stream, so neither runs a pool.
 
 Semantics, shared by every rung:
 
@@ -41,10 +44,10 @@ Semantics, shared by every rung:
   transaction carrying the matching public key and a valid Ed25519
   signature can *spend* from a fingerprint account (chain/validate.py).
 - ``verify_batch(triples)`` — True only if every triple is serially
-  valid.  The device and pure-Python batches compute one subgroup-gated
-  random-linear-combination equation per chunk of ``BATCH_CHUNK``; batch
-  FALSE is not yet a verdict (the gate also rejects torsion-crafted
-  inputs the serial equation tolerates).
+  valid.  The device, native and pure-Python batches compute one
+  subgroup-gated random-linear-combination equation per chunk of
+  ``BATCH_CHUNK``; batch FALSE is not yet a verdict (the gate also
+  rejects torsion-crafted inputs the serial equation tolerates).
 - ``first_invalid(triples)`` — serial-confirming locator used when a
   batch fails: sub-batches that pass are skipped (acceptance implies
   serial validity), everything else is settled by ``verify`` itself, so
@@ -66,14 +69,14 @@ import hashlib
 import json
 import logging
 import os
+import threading
 
 from p1_tpu_torch.core import _ed25519 as _py_ed25519
+from p1_tpu_torch.core import _ed25519_native as _native_ed25519
 
 #: The ``cryptography`` wheel's rung: never available in the port (it
 #: imports torch, numpy and the standard library only).
 HAVE_CRYPTOGRAPHY = False
-#: The native C++ rung: not ported yet (ROADMAP Queue A item 11).
-HAVE_NATIVE = False
 
 #: Account-id prefix: distinguishes spendable (key-backed) accounts from
 #: free-form receive-only ids at a glance.
@@ -169,7 +172,8 @@ log = logging.getLogger(__name__)
 
 #: Every signature backend the ladder names, in ladder order (the JAX
 #: package's key set, so ``STATS.backends`` has the same keys).
-#: ``device`` is batch-only: serial work under it takes ``pure-python``.
+#: ``device`` is batch-only: serial work under it takes ``native`` (or
+#: ``pure-python`` where the native engine does not build).
 SIG_BACKENDS = ("cryptography", "native", "pure-python", "device")
 
 #: Explicit backend override (``set_sig_backend``); None = auto (the
@@ -185,9 +189,12 @@ _resolved: str | None = None
 def set_sig_backend(name: str | None, *, device: str | None = None) -> None:
     """Pin the signature backend: ``auto``/None and ``device`` route
     BATCHES through ``hashx/ed25519_msm.verify_batch_device`` (serial
-    verifies take the pure-Python rung), ``fallback``/``pure-python``
-    force the pure-Python tier, ``cryptography``/``native`` ask for a rung
-    the port does not have (one warning, then ``auto``).  ``device`` is
+    verifies take the native rung, or pure Python without a toolchain),
+    ``native`` runs batches and serial verifies on the C++ host engine
+    (one warning, then ``auto``, where it does not build),
+    ``fallback``/``pure-python`` force the pure-Python tier,
+    ``cryptography`` asks for a rung the port does not have (one warning,
+    then ``auto``).  ``device`` is
     where the ``device`` rung runs: "cuda" (the default: the kernel, which
     raises without a card) or "cpu" (the plain PyTorch version); it is
     refused for any other rung.  Unknown names raise (a typo must not
@@ -215,8 +222,10 @@ def set_sig_backend(name: str | None, *, device: str | None = None) -> None:
 
 def backend() -> str:
     """The ACTIVE batch backend name, resolved lazily and memoized:
-    ``device`` unless ``pure-python`` is forced.  Serial dispatch under
-    ``device`` takes the pure-Python rung (``_serial_backend``)."""
+    ``device`` unless ``native`` or ``pure-python`` is pinned.  Serial
+    dispatch under ``device`` takes the rung beneath (``_serial_backend``).
+    Resolving a ``native`` pin may build the library once (``g++``); a
+    failed build is remembered by ``_ed25519_native``."""
     global _resolved
     if _resolved is not None:
         return _resolved
@@ -234,10 +243,11 @@ def backend() -> str:
             "carry the wheel; resolving auto (the device rung) instead"
         )
         want = "auto"
-    if want == "native" and not HAVE_NATIVE:
+    if want == "native" and not _native_ed25519.available():
         log.warning(
-            "signature backend 'native' requested but the port has no native "
-            "engine yet; resolving auto (the device rung) instead"
+            "signature backend 'native' requested but the engine did not "
+            "load (no compiler / build failure); resolving auto (the device "
+            "rung) instead"
         )
         want = "auto"
     if want == "auto":
@@ -248,7 +258,12 @@ def backend() -> str:
 
 def backend_label() -> str:
     """The backend name WITHOUT resolving: the memoized rung if any
-    verification already ran, else the pin/env request verbatim."""
+    verification already ran, else the pin/env request verbatim.
+
+    Status planes read this instead of ``backend()`` because resolution
+    may probe the native rung — a ctypes load that can run ``g++`` once —
+    and a GETSTATUS served from the node's event loop must never be the
+    call that pays it."""
     if _resolved is not None:
         return _resolved
     if _sig_backend is not None:
@@ -259,9 +274,12 @@ def backend_label() -> str:
 
 def _serial_backend() -> str:
     """Where one-at-a-time verifies go: the active backend, except that
-    ``device`` is batch-only and serial work takes the ladder beneath."""
+    ``device`` is batch-only and serial work takes the ladder beneath
+    (native where it loads, else pure Python)."""
     b = backend()
-    return "pure-python" if b == "device" else b
+    if b != "device":
+        return b
+    return "native" if _native_ed25519.available() else "pure-python"
 
 
 @dataclasses.dataclass
@@ -270,8 +288,8 @@ class VerifyStats:
     signatures that reached a backend one at a time, ``batched`` the ones
     that went through ``verify_batch``; ``backends`` splits the same
     signature counts by the rung that did the work — the key set is
-    FIXED (the JAX package's).  ``pool_dispatches`` stays 0: the port
-    has no worker pool."""
+    FIXED (the JAX package's).  ``pool_dispatches`` counts native batches
+    whose chunks went to the worker pool."""
 
     serial: int = 0
     batched: int = 0
@@ -296,6 +314,8 @@ def _backend_verify(pubkey: bytes, sig: bytes, message: bytes) -> bool:
     STATS.serial += 1
     which = _serial_backend()
     STATS.backends[which] += 1
+    if which == "native":
+        return _native_ed25519.verify(pubkey, sig, message)
     return _py_ed25519.verify(pubkey, sig, message)
 
 
@@ -350,15 +370,17 @@ BATCH_CHUNK = 1024
 
 _fallback_warned = False
 
-#: Explicit ``set_verify_workers`` pin (None = unpinned).  Recorded
-#: only: no rung of the port runs a pool (module docstring).
+_workers_lock = threading.Lock()
+#: Explicit ``set_verify_workers`` pin (None = unpinned).
 _workers: int | None = None
+_executor = None
+_executor_size = 0
 
 
 def set_verify_workers(n: int | None) -> None:
-    """Pin the verification worker count (None/0 = unpinned).  The port's
-    rungs run no pool, so the size changes neither where nor how a batch
-    is verified; it is what ``verify_workers`` reports."""
+    """Pin the verification worker count (None/0 = unpinned).  Only the
+    native rung's batches use it (module docstring); an existing pool of
+    a different size is replaced on the next batch."""
     global _workers
     _workers = int(n) if n else None
 
@@ -370,8 +392,38 @@ def verify_workers() -> int:
 
 
 def shutdown_verify_pool(cancel: bool = False) -> None:
-    """No-op: the port keeps no pool to tear down (the JAX package's
-    call, kept for its callers)."""
+    """Tear down the lazy worker pool (tests, interpreter exit).  Safe
+    to call any time: in-flight batches finish their chunks in the
+    calling thread when their futures are cancelled."""
+    global _executor, _executor_size
+    with _workers_lock:
+        ex, _executor, _executor_size = _executor, None, 0
+    if ex is not None:
+        ex.shutdown(wait=not cancel, cancel_futures=cancel)
+
+
+def _pool(size: int):
+    """The shared verification executor, (re)built at ``size``."""
+    global _executor, _executor_size
+    with _workers_lock:
+        old = None
+        if _executor is None or _executor_size != size:
+            from concurrent.futures import ThreadPoolExecutor
+
+            old = _executor
+            _executor = ThreadPoolExecutor(max_workers=size, thread_name_prefix="sigverify")
+            _executor_size = size
+        pool = _executor
+    if old is not None:
+        old.shutdown(wait=False, cancel_futures=True)
+    return pool
+
+
+def _use_pool(n_chunks: int) -> bool:
+    """Whether a batch's chunks go to the thread pool: native batches of
+    more than one chunk when more than one worker is set (ctypes releases
+    the GIL around each chunk's call).  Tests monkeypatch this."""
+    return backend() == "native" and n_chunks > 1 and verify_workers() > 1
 
 
 def _batch_worker():
@@ -379,12 +431,15 @@ def _batch_worker():
     resolved per batch so ``set_sig_backend`` takes effect immediately.
     The ``device`` worker is not guarded: a missing card or a kernel that
     fails to build or launch raises out of the batch."""
-    if backend() == "device":
+    b = backend()
+    if b == "device":
         from p1_tpu_torch.hashx import ed25519_msm
 
         return "device", functools.partial(
             ed25519_msm.verify_batch_device, device=_sig_device
         )
+    if b == "native":
+        return "native", _native_ed25519.verify_batch
     return "pure-python", _py_ed25519.verify_batch
 
 
@@ -400,8 +455,8 @@ def _warn_fallback_once() -> None:
         "pure-Python Ed25519 fallback was FORCED via set_sig_backend/"
         "P1_SIG_BACKEND for batch verification: every batch is a "
         "Python-integer multi-scalar multiplication.  The 'device' rung "
-        "(the default) runs batches on the card; the 'native' and "
-        "'cryptography' rungs of the JAX package are not in the port."
+        "(the default) runs batches on the card and the 'native' rung on "
+        "the C++ host engine; the 'cryptography' rung is not in the port."
     )
 
 
@@ -414,8 +469,9 @@ def verify_batch(triples) -> bool:
     tolerates (_ed25519.py's docstring) — use ``first_invalid`` to
     settle a failed batch with serial-identical semantics.  Dispatch
     (``_batch_worker``): device → ``verify_batch_device`` per chunk, one
-    kernel launch each; pure-Python → the host MSM per chunk, in the
-    calling thread.
+    kernel launch each; native → the C++ gated batch per chunk, on the
+    worker pool when ``_use_pool``; pure-Python → the host MSM per chunk,
+    in the calling thread.
     """
     triples = list(triples)
     if not triples:
@@ -430,7 +486,30 @@ def verify_batch(triples) -> bool:
         return _verify_serial_counted(triples)
     STATS.backends[which] += len(triples)
     chunks = [triples[i : i + BATCH_CHUNK] for i in range(0, len(triples), BATCH_CHUNK)]
-    return all(worker(chunk) for chunk in chunks)
+    if not _use_pool(len(chunks)):
+        return all(worker(chunk) for chunk in chunks)
+    from concurrent.futures import CancelledError
+
+    STATS.pool_dispatches += 1
+    pool = _pool(verify_workers())
+    futures = []
+    for chunk in chunks:
+        try:
+            futures.append(pool.submit(worker, chunk))
+        except RuntimeError:  # pool shut down mid-submission
+            futures.append(None)
+    ok = True
+    for fut, chunk in zip(futures, chunks):
+        if fut is None:
+            ok &= worker(chunk)
+            continue
+        try:
+            ok &= fut.result()
+        except (CancelledError, RuntimeError):
+            # Pool torn down mid-batch: finish in this thread — the answer
+            # must not depend on the executor's lifecycle.
+            ok &= worker(chunk)
+    return ok
 
 
 def _verify_serial_counted(triples) -> bool:

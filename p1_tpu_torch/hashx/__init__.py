@@ -8,8 +8,10 @@ from p1_tpu_torch.hashx.backend import (
 
 # Import for registration side effects.
 from p1_tpu_torch.hashx import cpu as _cpu  # noqa: F401
+from p1_tpu_torch.hashx import numpy_backend as _numpy  # noqa: F401
 
-# The kernel backend imports torch: it loads on first use.
+# The kernel backend imports torch and the native one builds a library:
+# both load on first use.
 from p1_tpu_torch.hashx.backend import register_lazy as _register_lazy
 
 
@@ -19,7 +21,14 @@ def _load_cuda():
     return cuda_backend.CudaBackend
 
 
+def _load_native():
+    from p1_tpu_torch.hashx import native_backend
+
+    return native_backend.NativeBackend
+
+
 _register_lazy("cuda", _load_cuda)
+_register_lazy("native", _load_native)
 
 __all__ = [
     "HashBackend",

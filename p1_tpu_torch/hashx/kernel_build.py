@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels (``csrc/*.cu`` of a package) on first use.
 
-The role of ``p1_tpu/hashx/native_build.py`` for the card: ``nvcc`` compiles
-each source into a shared library with a plain C interface for Hopper
-(``sm_90a``), and ``ctypes`` loads it — no PyTorch headers, so a build
-takes seconds.  A source is a file name in ``hashx/csrc`` (the default
-``csrc``) or in another package's ``csrc`` directory, passed as ``csrc``.
+The card's counterpart of ``hashx/native_build.py`` (the host core):
+``nvcc`` compiles each source into a shared library with a plain C
+interface for Hopper (``sm_90a``), and ``ctypes`` loads it — no PyTorch
+headers, so a build takes seconds.  A source is a file name in
+``hashx/csrc`` (the default ``csrc``) or in another package's ``csrc``
+directory, passed as ``csrc``.
 Every library lands in ``build/p1_tpu_torch/`` beside the package
 (``.gitignore`` lists ``build/``), named by a hash of the source, the
 headers (``*.cuh``) of its ``csrc`` and the flags, so an edited source or

@@ -7,8 +7,9 @@ watch.  `p1 pod`'s leader reuses it with its own arg namespace and a
 ``PodMiner`` injected.
 
 The port's copy of ``p1_tpu/node/runner.py``; ``--device`` becomes the
-config's ``device``, and at exit the node logs each kernel wrapper's
-launch count (``kernel_launches``).
+config's ``device``, the native Ed25519 engine is loaded before the node
+starts, and at exit the node logs each kernel wrapper's launch count
+(``kernel_launches``).
 """
 
 from __future__ import annotations
@@ -69,6 +70,12 @@ async def run_node(args, miner=None) -> int:
         prune_keep_blocks=getattr(args, "prune", 0),
         snapshot_interval=getattr(args, "snapshot_interval", 0),
     )
+    # The serial signature rung's library loads here, before the node
+    # serves (and on a host that has not built it, compiles: one g++),
+    # not inside the event loop on the first transfer it admits.
+    from p1_tpu_torch.core import _ed25519_native
+
+    _ed25519_native.load()
     node = Node(config, miner=miner)
     await node.start()
     # --store-degraded-exit watch: the node signals instead of exiting

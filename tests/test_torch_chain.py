@@ -657,8 +657,9 @@ class TestSyncSurfaces:
 
 
 class TestReplayPacked:
-    """``replay_packed`` / ``replay_fast``: the host oracle until the native
-    engine is ported, with the JAX package's ``replay_host`` verdicts."""
+    """``replay_packed`` / ``replay_fast``: the native engine where it
+    builds (``replay_host`` otherwise), with the JAX package's
+    ``replay_host`` verdicts."""
 
     @pytest.fixture(scope="class")
     def packed(self):
@@ -672,14 +673,16 @@ class TestReplayPacked:
         from p1_tpu.chain import parse_headers as ref_parse
         from p1_tpu.chain import replay_host as ref_replay_host
         from p1_tpu_torch.chain import parse_headers, replay_fast, replay_packed
+        from p1_tpu_torch.hashx import native_backend
 
         raw = bytearray(packed)
         if flip is not None:
             raw[flip] ^= 0x01
         want = ref_replay_host(ref_parse(bytes(raw)))
+        native_backend._lib()  # g++ is on the test hosts: the native tier runs
         for got in (replay_packed(bytes(raw)), replay_fast(parse_headers(bytes(raw)))):
             assert (got.valid, got.first_invalid, got.n_headers, got.method) == (
-                want.valid, want.first_invalid, want.n_headers, "host",
+                want.valid, want.first_invalid, want.n_headers, "native",
             )  # fmt: skip
 
     @pytest.mark.parametrize("raw", [b"", b"\x00" * 79, b"\x00" * 161])

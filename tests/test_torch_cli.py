@@ -11,6 +11,9 @@ reference's plus 2,000, so both files can run at once.  ``TestDevice``
 holds the port's own contract: without a card and without ``--device
 cpu`` a node or net exits non-zero, and ``--verify-workers`` is reported.
 ``TestNetRelayBench`` runs ``benchmarks/net_relay.py`` at a small size.
+``TestNativeTier`` runs the native host tier's commands: ``replay
+--method native|all``, ``mine --backend native|numpy`` and a node with
+``--sig-backend native`` admitting a wallet's transfer on that rung.
 
 Waiting for the simulation, serving and fault planes (ROADMAP Queue A
 item 7c): ``TestWatchCLI.test_watch_deadline_is_a_clean_exit`` (it runs
@@ -970,3 +973,58 @@ class TestNetRelayBench:
             capture_output=True, text=True, timeout=110, cwd=REPO,
         )  # fmt: skip
         assert proc.returncode != 0 and "holds no chip_smoke.py" in proc.stderr
+
+
+class TestNativeTier:
+    """The native host tier on the command line: ``replay --method
+    native|all``, ``mine --backend native|numpy``, ``--sig-backend
+    native``, all with ``--device cpu``."""
+
+    @pytest.mark.parametrize(
+        "method,methods", [("native", ["native"]), ("all", ["host", "native", "device", "device"])]
+    )
+    def test_replay_native_and_all(self, method, methods):
+        out = _run("replay", "--n", "16", "--difficulty", "8", "--device", "cpu", "--method", method)
+        assert out["valid"] and out["first_invalid"] is None and out["n_headers"] == 16
+        assert [r["method"] for r in out["results"]] == methods
+
+    @pytest.mark.parametrize("backend", ["native", "numpy"])
+    def test_mine_on_a_host_backend(self, backend):
+        out = _run("mine", "--backend", backend, "--device", "cpu", "--difficulty", "8", "--blocks", "2")
+        assert (out["config"], out["backend"], out["blocks"]) == ("mine", backend, 2)
+
+    def test_sig_backend_native_admits_on_the_native_rung(self, tmp_path):
+        import time
+
+        alice_key = str(tmp_path / "alice.key")
+        alice = _run("keygen", "--out", alice_key, "--seed-text", "cli-native-alice")["account"]
+        node_log = open(tmp_path / "node.log", "w")
+        node = subprocess.Popen(
+            [
+                sys.executable, "-m", "p1_tpu_torch", "node", "--sig-backend", "native",
+                "--difficulty", "12", "--backend", "cpu", "--device", "cpu", "--chunk", "16384",
+                "--port", "0", "--miner-id", alice, "--deadline", "stdin",
+            ],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=node_log, text=True, cwd=REPO,
+        )  # fmt: skip
+        try:
+            port = str(json.loads(node.stdout.readline())["ready"])
+            deadline = time.monotonic() + 90
+            sent = False
+            while not sent and time.monotonic() < deadline:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "p1_tpu_torch", "tx", "--difficulty", "12", "--port", port,
+                     "--key", alice_key, "--recipient", "bob", "--amount", "1", "--fee", "1"],
+                    capture_output=True, text=True, timeout=30, cwd=REPO,
+                )  # fmt: skip
+                sent = proc.returncode == 0 and json.loads(proc.stdout)["peer_height"] >= 1
+                time.sleep(0.2)
+            assert sent, "node never became reachable with a funded miner"
+            out, _ = node.communicate(input=f"{time.time()!r}\n", timeout=60)
+        finally:
+            if node.poll() is None:
+                node.kill()
+            node_log.close()
+        validation = json.loads(out.strip().splitlines()[-1])["validation"]
+        assert validation["backend"] == "native"
+        assert validation["backends"]["native"] >= 1 and validation["backends"]["pure-python"] == 0

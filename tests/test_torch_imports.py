@@ -80,6 +80,10 @@ PORT_MODULES = (
     "p1_tpu_torch.node.runner",
     "p1_tpu_torch.node.byzantine",
     "p1_tpu_torch.node.netharness",
+    "p1_tpu_torch.hashx.native_build",
+    "p1_tpu_torch.hashx.native_backend",
+    "p1_tpu_torch.hashx.numpy_backend",
+    "p1_tpu_torch.core._ed25519_native",
 )
 
 
@@ -100,6 +104,10 @@ def test_every_module_imports_without_jax_or_p1_tpu():
         "wrappers = (cuda_backend.sha256d_search, cuda_verify.verify_chain, vpu_roofline.int_roofline,\n"
         "            cuda_ed25519.ed25519_msm)\n"
         "bad += [type(w).__name__ for w in wrappers if w._built is not None or w.launches]\n"
+        "from p1_tpu_torch.core import _ed25519_native\n"
+        "from p1_tpu_torch.hashx import native_backend\n"
+        "if native_backend._LIB is not None or _ed25519_native._LIB is not None or _ed25519_native._LOAD_FAILED:\n"
+        "    bad.append('native library loaded at import')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

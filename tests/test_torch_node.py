@@ -933,6 +933,33 @@ class TestPortDevice:
         finally:
             keys.set_sig_backend(None)
 
+    def test_admission_runs_on_the_native_rung(self):
+        # Mempool admission is a serial verify: under auto it runs on the
+        # native C++ engine, and status()["validation"]["backends"] counts
+        # it there (the pure-Python rung does no work).
+        from p1_tpu_torch.core import keys
+
+        async def scenario():
+            (node,) = await start_mesh(1)
+            try:
+                await fund(node, "alice")
+                keys.STATS.reset()
+                txs = [stx("alice", "bob", 1, 1, seq, difficulty=DIFF) for seq in range(3)]
+                for tx in txs:
+                    await node.submit_tx(Transaction.deserialize(tx.serialize()))
+                assert len(node.mempool) == 3
+                backends = node.status()["validation"]["backends"]
+                assert backends["native"] == 3 and backends["pure-python"] == 0
+                assert node.status()["validation"]["backend"] == "device"
+            finally:
+                await stop_all([node])
+
+        keys.set_sig_backend(None)
+        try:
+            run(scenario())
+        finally:
+            keys.set_sig_backend(None)
+
     def test_auto_on_the_card_keeps_another_nodes_pin(self):
         # "auto" on the card must not clobber a pin made before it (the
         # reference's multi-node rule); constructing it needs a card, so
@@ -991,6 +1018,6 @@ class TestPortDevice:
             assert keys.verify_workers() == 1  # unpinned: one thread
             node = Node(_config(pipeline_workers=2))
             assert node.status()["validation"]["workers"] == 2
-            keys.shutdown_verify_pool()  # a no-op: the port keeps no pool
+            keys.shutdown_verify_pool()  # the native rung's pool: none was started
         finally:
             keys.set_verify_workers(before)

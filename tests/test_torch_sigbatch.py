@@ -11,6 +11,10 @@ streams its signature windows into them (``TestRevalidateEquivalence``).  The po
 ``device``, runs here through ``set_sig_backend("device", device="cpu")``
 (the plain PyTorch version), which every test pins unless it asks for
 another rung; asked for the card on a host without one, it raises.
+``each_rung`` runs the equivalence cases on every batch rung: pure
+Python, the native C++ engine (``g++`` builds it on the test hosts) and
+the device rung's plain version; serial work takes the native rung unless
+``native_absent`` makes its build fail, as on a host without ``g++``.
 
 Fixtures are signed with the JAX package's keys (the ``cryptography``
 wheel where it is installed) and carried into the port by their bytes:
@@ -137,15 +141,35 @@ def _outcomes(txs) -> tuple[str | None, str | None]:
     return want, got
 
 
-@pytest.fixture(params=["pure-python", "device-cpu"])
+@pytest.fixture(params=["pure-python", "native", "device-cpu"])
 def each_rung(request):
-    """The port's two batch rungs: pure-Python and the device rung on the
-    plain version."""
+    """The port's three batch rungs: pure-Python, the native C++ engine and
+    the device rung on the plain version."""
     if request.param == "device-cpu":
         keys.set_sig_backend("device", device="cpu")
+    elif request.param == "native":
+        keys.set_sig_backend("native")
+        assert keys.backend() == "native", "the native engine did not build (g++)"
     else:
         keys.set_sig_backend("fallback")
     yield request.param
+
+
+@pytest.fixture
+def native_absent(monkeypatch):
+    """The native engine as on a host without a toolchain: its build
+    raises ``NativeBuildError`` and the load is remembered as failed."""
+    from p1_tpu_torch.core import _ed25519_native
+    from p1_tpu_torch.hashx import native_build
+
+    def no_toolchain(force=False):
+        raise native_build.NativeBuildError("no toolchain (test)")
+
+    monkeypatch.setattr(native_build, "build_lib", no_toolchain)
+    monkeypatch.setattr(_ed25519_native, "_LIB", None)
+    monkeypatch.setattr(_ed25519_native, "_LOAD_FAILED", False)
+    yield
+    keys.set_sig_backend(None)
 
 
 class TestCopies:
@@ -228,9 +252,11 @@ class TestKeypair:
 
 
 class TestLadder:
-    def test_auto_resolves_pure_python(self, monkeypatch):
-        # Serial verifies resolve to the pure-Python rung; batches to the
-        # card (the port's entry points run on the card by default).
+    def test_auto_resolves_pure_python(self, monkeypatch, native_absent):
+        # Serial verifies resolve to the native rung where it builds, to
+        # the pure-Python rung where it does not (here: no toolchain);
+        # batches to the card (the port's entry points run on the card by
+        # default).
         monkeypatch.delenv("P1_SIG_BACKEND", raising=False)
         keys.set_sig_backend(None)
         assert keys.backend_label() == "auto"
@@ -238,8 +264,30 @@ class TestLadder:
         assert keys.backend() == keys.backend_label() == "device" and keys._sig_device == "cuda"
         assert keys.HAVE_CRYPTOGRAPHY is False
 
+    def test_auto_serial_rung_is_native(self, monkeypatch):
+        monkeypatch.delenv("P1_SIG_BACKEND", raising=False)
+        keys.set_sig_backend(None)
+        assert keys._serial_backend() == "native"
+        assert keys.backend() == "device"
+        keys.set_sig_backend("native")
+        assert keys.backend() == keys._serial_backend() == keys.backend_label() == "native"
+
+    def test_label_does_not_probe_the_native_engine(self, monkeypatch):
+        # A status request must never be the call that runs g++.
+        from p1_tpu_torch.core import _ed25519_native
+
+        def probe():
+            raise AssertionError("backend_label() probed the native engine")
+
+        monkeypatch.setattr(_ed25519_native, "load", probe)
+        for name in (None, "native", "device"):
+            keys.set_sig_backend(name)
+            assert keys.backend_label() == (name or "auto")
+
     @pytest.mark.parametrize("name", ["cryptography", "native"])
-    def test_missing_rungs_warn_and_resolve_the_ladder(self, name, caplog):
+    def test_missing_rungs_warn_and_resolve_the_ladder(self, name, caplog, native_absent):
+        # The wheel is never in the port; the native engine is missing
+        # where it does not build (``native_absent``).
         keys.set_sig_backend(name)
         assert keys.backend_label() == name
         with caplog.at_level("WARNING", logger="p1_tpu_torch.core.keys"):
@@ -256,7 +304,7 @@ class TestLadder:
     def test_device_rung_and_its_device(self):
         keys.set_sig_backend("device")
         assert keys.backend() == "device" and keys._sig_device == "cuda"
-        assert keys._serial_backend() == "pure-python"
+        assert keys._serial_backend() == "native"
         keys.set_sig_backend("device", device="cpu")
         assert keys._sig_device == "cpu"
         keys.set_sig_backend(None)
@@ -330,8 +378,46 @@ class TestStats:
         keys.STATS.reset()
         assert keys.verify_batch(tr)
         assert keys.STATS.batched == len(tr) and keys.STATS.serial == 0
-        rung = "device" if each_rung == "device-cpu" else "pure-python"
+        rung = "device" if each_rung == "device-cpu" else each_rung
         assert keys.STATS.backends == {**{k: 0 for k in keys.SIG_BACKENDS}, rung: len(tr)}
+
+    def test_auto_batches_on_device_serial_on_native(self):
+        # Under auto a batch of BATCH_MIN or more goes to the device rung
+        # (here its plain version), a serial verify to the native rung.
+        keys.set_sig_backend("auto", device="cpu")
+        tr = _triples(keys.BATCH_MIN, salt="auto-split")
+        keys.STATS.reset()
+        assert keys.verify_batch(tr)
+        keys._neg_cache.clear()
+        assert keys.verify(*tr[0])
+        assert not keys.verify(*_corrupt(tr[1]))
+        assert keys.STATS.backends == {**{k: 0 for k in keys.SIG_BACKENDS}, "device": len(tr), "native": 2}
+        assert (keys.STATS.batched, keys.STATS.serial) == (len(tr), 2)
+
+    def test_native_chunks_go_to_the_pool(self, monkeypatch):
+        # A pinned native batch of several chunks runs them on the verify
+        # pool when more than one worker is set; one worker keeps them in
+        # the calling thread.
+        monkeypatch.setattr(keys, "BATCH_CHUNK", 8)
+        keys.set_sig_backend("native")
+        tr = _triples(20, salt="pool")
+        try:
+            keys.set_verify_workers(3)
+            keys.STATS.reset()
+            assert keys.verify_batch(tr)
+            assert keys.STATS.pool_dispatches == 1 and keys.STATS.backends["native"] == 20
+            bad = list(tr)
+            bad[13] = _corrupt(bad[13])
+            assert not keys.verify_batch(bad)
+            assert keys.first_invalid(bad) == 13
+            keys.shutdown_verify_pool()
+            assert keys.verify_batch(tr)  # a new pool after the shutdown
+            keys.set_verify_workers(1)
+            keys.STATS.reset()
+            assert keys.verify_batch(tr) and keys.STATS.pool_dispatches == 0
+        finally:
+            keys.set_verify_workers(None)
+            keys.shutdown_verify_pool()
 
     def test_device_chunks_are_launch_units(self, monkeypatch):
         calls = []

@@ -269,6 +269,25 @@ class TestNodeMetricsCompat:
         assert snap["gauges"]["validation.sigs_batched"] == 3
         keys.STATS.reset()
 
+    def test_serial_verify_lands_on_the_native_gauge(self):
+        # Under auto a serial verify runs on the native rung, and the
+        # export shows it there (the pure-Python gauge stays 0).
+        from p1_tpu_torch.core import keys
+        from txutil import key_for
+
+        node = _fresh_node()
+        kp = key_for("telemetry-native")
+        keys.set_sig_backend(None)
+        keys.STATS.reset()
+        try:
+            assert keys.verify(kp.pubkey, kp.sign(b"m"), b"m")
+            gauges = node.telemetry_snapshot()["gauges"]
+            assert gauges["validation.backend.native"] == 1 == gauges["validation.sigs_serial"]
+            assert gauges["validation.backend.pure-python"] == 0
+        finally:
+            keys.STATS.reset()
+            keys.set_sig_backend(None)
+
 
 class TestLogAttribution:
     """Satellite 2: LoggerAdapter carrying node identity."""
