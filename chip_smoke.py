@@ -5,9 +5,10 @@
 
 Drives the port's paths, ``mine``, ``replay``, signature validation
 (``check_block`` under the ``device`` rung), the untrusted load of a
-chain store, a node and the 4-node net, and the native host tier, on the
-GPU and its host in phases, one JSON line each, and fails (non-zero exit,
-no last line) if any phase fails:
+chain store, a node and the 4-node net, the native host tier, and the
+multi-chip plane (sharded search and MSM, a pod), on the GPU and its
+host in phases, one JSON line each, and fails (non-zero exit, no last
+line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
    ``p1_tpu_torch/hashx/csrc/sha256d_search.cu`` with ``nvcc`` for
@@ -126,19 +127,49 @@ no last line) if any phase fails:
    invalid header on phase 6's corruptions; µs per signature of a serial
    native verify, a 1,024 native batch and the device rung on the same
    triples (``sig_verify.bench_native``).
+14. multichip — the multi-chip plane on the one card (``hashx/sharded.py``,
+   ``parallel/``, ``graft_entry.py``; every figure beside the
+   ``nvidia-smi`` line): the ``sharded`` backend on a one-slot and a
+   4-slot mesh (four streams of ``cuda:0``) gives phase 2's first hits
+   (misses: the span), a hit in slot 2 or 3 (equal to the kernel's and
+   the plain version's), and on 63 slots (span 2**32 - 2**26) the miss
+   and a hit past 2**31; its rate over full 2**32 scans at difficulty 64
+   and the 4-slot step's device time beside 4x the search bound; the
+   4-slot step at 2**22 a slot equal to its plain body on a miss and on
+   a hit past slot 0;
+   ``mine --backend sharded --difficulty 28`` (BASELINE config 5) for 8
+   blocks on both meshes (``cli.mine_chain``, the path whose launches are
+   counted) seals ``cuda``'s headers; ``verify_batch_device`` on phase
+   8's 1,024 triples on 4 slots and 1 (one launch a slot): the same
+   verdicts valid, with another R in each slot, and on the torsion
+   crafts, µs per signature; each of the 4 slices through the kernels on
+   its slot's stream equal to the plain version (decoded limbs, flags,
+   all-ok, canonical partial sum) and the big-integer oracle, and the 4
+   slices' device time; a pod of two
+   ``python -m p1_tpu_torch pod`` processes on gloo with a listener node
+   (the leader's blocks reach it and pass hashlib, the follower mirrored
+   every search, each process's launches), then a pod whose follower is
+   SIGKILLed (the leader fails over to solo mining, its store grows, exit
+   codes); ``dryrun_multichip(4, device="cuda")``.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
 measured, at the larger of ``clocks.max.sm`` and the SM clock phase 5
 measured; the white paper's bound rides beside it.  Then the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without
-a CUDA device it exits 2.  The four kernel sources are built at the start,
+a CUDA device it exits 2.  It stops every process it starts: it adopts
+its children's orphans (``PR_SET_CHILD_SUBREAPER``), and before the
+``kernels`` line it stops ``multiprocessing``'s resource tracker (which
+phase 8's spawn pools start) and fails if any child is still running; on
+any exit it kills and reaps what is left.  The four kernel sources are built at the start,
 one ``nvcc`` each, all at once, with the native library's ``g++``; a node
 child loads what is built.  The ``launches`` of ``sha256d_search`` and
 ``ed25519_msm`` add phases 11 and 12's children to this process's paths
 (``launches_node``, ``launches_net`` beside them); phase 13's replay
 launches ride beside the search and verify kernels' totals
-(``launches_native_replay``).
+(``launches_native_replay``); phase 14's sharded mining and pod
+processes add to ``sha256d_search``'s (``launches_multichip``,
+``launches_pod``), its sharded MSM to ``ed25519_msm``'s.
 """
 
 from __future__ import annotations
@@ -232,6 +263,63 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]  # fmt: skip
+
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants' orphans, so that a
+    grandchild whose parent died is still this process's to stop."""
+    import ctypes
+
+    if ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def stop_resource_tracker() -> None:
+    """Stop and reap the process that ``multiprocessing``'s spawn context
+    starts beside its first pool (phase 8, ``sig_verify.sign_many``).  It
+    lives until its pipe from this process closes, so left alone it would
+    outlive this script by the moment it takes to see the exit."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        if tracker._pid is not None:
+            os.close(tracker._fd)  # the tracker's loop ends at end of file
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
+
+
+def child_pids() -> list[int]:
+    """This process's children, adopted orphans included, from ``/proc``."""
+    me, pids = os.getpid(), []
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            ppid = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue  # gone meanwhile
+        if ppid == me:
+            pids.append(int(stat.parent.name))
+    return pids
+
+
+def stop_children() -> list[str]:
+    """Kill and reap every child of this process; the command line of each
+    that was still running (a zombie, already ended, is reaped unnamed)."""
+    running = []
+    for pid in child_pids():
+        try:
+            cmd = pathlib.Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            cmd = ""
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+        if cmd.strip():
+            running.append(f"pid {pid}: {cmd.strip()}")
+    return running
 
 
 def prefix_for(seed: int, difficulty: int) -> bytes:
@@ -736,7 +824,7 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
     shape; ``verify_batch_device`` verdicts and timings; the main path,
     ``check_block`` on a full block and ``preverify_signatures`` on a
     4,096-signature window under the ``device`` rung.  Returns the
-    kernel's entry of the ``kernels`` line."""
+    kernel's entry of the ``kernels`` line and the 1,024 triples."""
     import concurrent.futures
     import multiprocessing
 
@@ -938,7 +1026,7 @@ def phase_ed25519(sass, sms: int, peak: Rate) -> dict:
                                sum(sass.is_fma(i.opcode) for i in insns)],
         "attributes": attrs,
         "us_per_sig_1024": next(r["us_per_sig"] for r in rows if r["n"] == SIG_BATCH),
-    }  # fmt: skip
+    }, batch  # fmt: skip
 
 
 def phase_revalidate(kernel) -> dict:
@@ -1127,6 +1215,30 @@ def logged_admission(log: pathlib.Path) -> list[dict]:
     return [{**a, "us_per_tx": 1e6 * a["s"] / a["txs_accepted"] if a["txs_accepted"] else None} for a in lines]
 
 
+def stored_blocks(path: pathlib.Path, difficulty: int) -> list:
+    """The blocks of a node's store (none if it is not written yet), each
+    checked by hashlib for its target and its link to a block before it."""
+    from p1_tpu_torch.chain import ChainStore
+    from p1_tpu_torch.core.genesis import make_genesis
+    from p1_tpu_torch.core.hashutil import sha256d
+    from p1_tpu_torch.core.header import meets_target
+
+    if not path.exists():
+        return []
+    store = ChainStore(path)
+    try:
+        blocks = store.load_blocks()
+    finally:
+        store.close()
+    seen = {make_genesis(difficulty).block_hash()}
+    for block in blocks:
+        raw = block.header.serialize()
+        if block.header.prev_hash not in seen or not meets_target(sha256d(raw), difficulty):
+            raise AssertionError(f"stored block fails its target or link: {raw.hex()}")
+        seen.add(sha256d(raw))
+    return blocks
+
+
 def free_port_block(n: int) -> int:
     """A base port whose ``n`` ports from it are all free on 127.0.0.1 now:
     a net's nodes listen on base..base+n-1, and a fixed base would meet
@@ -1229,10 +1341,7 @@ def phase_node(built, device: str = "cuda", mine_difficulty: int = NODE_MINE_DIF
     deep-syncs the chain and the first node's pool from it; (c) a mining
     node at difficulty 20 seals blocks through ``sha256d_search.cu``, and
     every block of its store passes hashlib's target and link check."""
-    from p1_tpu_torch.chain import ChainStore, save_chain
-    from p1_tpu_torch.core.genesis import make_genesis
-    from p1_tpu_torch.core.hashutil import sha256d
-    from p1_tpu_torch.core.header import meets_target
+    from p1_tpu_torch.chain import save_chain
 
     signatures = (REVAL_BLOCKS - 1) * REVAL_TXS
     tip = built.tip_hash.hex()
@@ -1287,17 +1396,7 @@ def phase_node(built, device: str = "cuda", mine_difficulty: int = NODE_MINE_DIF
             raise AssertionError(f"mining node: exit {c.returncode}, {final_c['blocks_mined']} blocks mined")
         if device == "cuda" and launches_c["sha256d_search"] <= 0:
             raise AssertionError(f"mining node launched the search kernel no time: {launches_c}")
-        store = ChainStore(tmp / "c.chain")
-        try:
-            blocks = store.load_blocks()
-        finally:
-            store.close()
-        seen = {make_genesis(mine_difficulty).block_hash()}
-        for block in blocks:
-            raw = block.header.serialize()
-            if block.header.prev_hash not in seen or not meets_target(sha256d(raw), mine_difficulty):
-                raise AssertionError(f"stored block fails its target or link: {raw.hex()}")
-            seen.add(sha256d(raw))
+        blocks = stored_blocks(tmp / "c.chain", mine_difficulty)
         if final_c["tip"] != blocks[-1].block_hash().hex() or len(blocks) < final_c["height"]:
             raise AssertionError(f"store of {len(blocks)} blocks, node at {final_c['height']} {final_c['tip']}")
     line = {"boot_revalidate_s": boot_s, "boot_height": booted["height"], "boot_tip": booted["tip"],
@@ -1469,6 +1568,376 @@ def phase_native(native_build_s: float, search_fn, batch: int) -> tuple[dict, di
     return result, launches
 
 
+# -- phase 14: the multi-chip plane -------------------------------------------
+
+MESH_SLOTS = 4  # the virtual mesh on one card: four slots, four streams
+MESH_DIFFICULTY = 28  # BASELINE config 5
+MESH_BLOCKS = 8
+LATE_BATCH = 1 << 20  # per slot: a 4-slot step of 2**22, hits expected at ~2**21 ...
+LATE_DIFFICULTY = 21  # ... so some seed's earliest hit lies in slot 2 or 3
+NEAR_SLOTS = 63  # 63 x 2**26 = 2**32 - 2**26: the widest step under 2**32 at the default batch
+NEAR_DIFFICULTY = 32  # about one hit per 2**32: some seed's earliest lies past 2**31
+SCAN_COUNT = 1 << 32  # the full scans' nonces
+POD_DIFFICULTY = 20
+POD_ARGS = ("--num-hosts", "2", "--difficulty", str(POD_DIFFICULTY))
+POD_S = 10  # the gossiping pod's window
+POD_FAILOVER_S = 45  # the failover pod's window, which its solo node inherits
+POD_GRACE_S = "15"  # P1_POD_GRACE_S of the failover pod: no kernel build in a gap
+
+
+def spawn_pod(coord: int, host_id: int, args: list[str], log: pathlib.Path, device: str, children: list,
+              env: dict | None = None) -> subprocess.Popen:  # fmt: skip
+    """``python -m p1_tpu_torch pod`` process ``host_id`` of the pod whose
+    rendezvous is at ``coord``, its log to ``log``, stopped with the phase."""
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "p1_tpu_torch", "pod", "--coordinator", f"127.0.0.1:{coord}",
+             "--host-id", str(host_id), "--device", device, *POD_ARGS, *args],
+            stdout=subprocess.PIPE, stderr=fh, text=True, cwd=ROOT, env=env,
+        )  # fmt: skip
+    children.append(proc)
+    return proc
+
+
+def wait_blocks(path: pathlib.Path, difficulty: int, target: int, timeout: float) -> int:
+    deadline = time.monotonic() + timeout
+    while (n := len(stored_blocks(path, difficulty))) < target:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{path.name}: {n} blocks after {timeout} s, waiting for {target}")
+        time.sleep(0.5)
+    return n
+
+
+def mesh_ms(mesh, launch, reps: int = 20) -> float:
+    """Mean device milliseconds of ``launch(i)`` on every slot i of
+    ``mesh``, each on its slot's stream, from an event on the current
+    stream to one recorded after every slot's stream is done."""
+    import torch
+
+    current = torch.cuda.current_stream()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(len(mesh.devices)):  # warm
+        with mesh.stream(i):
+            launch(i)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        for s in mesh.streams:
+            s.wait_stream(current)
+        for i in range(len(mesh.devices)):
+            with mesh.stream(i):
+                launch(i)
+        for s in mesh.streams:
+            current.wait_stream(s)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_multichip(fixtures: list, batch: int, sub: int, threads: int, search_bound_ms: float, sig_batch: list,
+                    msm_bound, smi: str, device: str = "cuda") -> tuple[dict, dict]:  # fmt: skip
+    """Phase 14: the multi-chip plane on one card.  The ``sharded`` backend
+    on a one-slot and a ``MESH_SLOTS``-slot mesh (each slot a stream of
+    ``cuda:0``): phase 2's first hits, a hit in slot 2 or 3, the no-hit
+    span, a 63-slot span just under 2**32 with a hit past 2**31; full
+    2**32 scans' rates and the slots' step time; BASELINE config 5,
+    ``mine --backend sharded --difficulty 28`` (the path whose launches
+    are counted) on both meshes sealing ``cuda``'s nonces; the sharded
+    MSM on the 1,024 triples at both mesh sizes (one launch a slot, the
+    same verdicts); a two-process pod on gloo and a listener (blocks
+    gossiped and valid, searches mirrored, each process's launches), then
+    a pod whose follower is SIGKILLed (the leader fails over to solo
+    mining and the store keeps growing); ``dryrun_multichip``.  Returns
+    the phase's line and its launches per kernel."""
+    import torch
+
+    from p1_tpu_torch import graft_entry
+    from p1_tpu_torch.benchmarks import sig_verify as sv
+    from p1_tpu_torch.cli import mine_chain, mine_report
+    from p1_tpu_torch.core import _ed25519 as e
+    from p1_tpu_torch.core.hashutil import sha256d
+    from p1_tpu_torch.core.header import meets_target
+    from p1_tpu_torch.hashx import cuda_backend as cb
+    from p1_tpu_torch.hashx import cuda_ed25519 as ce
+    from p1_tpu_torch.hashx import ed25519_msm as m
+    from p1_tpu_torch.hashx import get_backend, sharded
+    from p1_tpu_torch.miner import Miner
+
+    on_card = device == "cuda"
+    search, msm = cb.sha256d_search, ce.ed25519_msm
+    slot_dev = "cuda:0" if on_card else "cpu"
+
+    def mesh_backend(slots: int, per_slot: int | None = None):
+        kwargs = {} if per_slot is None else {"batch": per_slot}
+        return get_backend("sharded", n_devices=slots, device=slot_dev, slots_per_device=slots, sub=sub,
+                           threads=threads, **kwargs)  # fmt: skip
+
+    def counted(n_before: int, want: int, what: str) -> None:
+        if on_card and search.launches - n_before != want:
+            raise AssertionError(f"{what}: {search.launches - n_before} search launches, expected {want}")
+
+    # -- first hits: phase 2's fixtures, a late hit, the span under 2**32 --
+    cases = 0
+    for slots in (1, MESH_SLOTS):
+        for span, seed, diff, base, want in fixtures:
+            step = mesh_backend(slots, span // slots)._make_step(span)
+            before = search.launches
+            got = int(step(arrays_for(prefix_for(seed, diff), diff, device), base)[0])
+            if got != want:
+                raise AssertionError(f"{slots}-slot step {got} != cuda's {want} (span {span}, d{diff}, base {base:#x})")
+            counted(before, slots, f"{slots}-slot step")
+            cases += 1
+    late_span = MESH_SLOTS * LATE_BATCH
+    single = cb.cuda_search_fn(late_span, sub, threads)
+    for seed in range(100, 164):
+        arrays = arrays_for(prefix_for(seed, LATE_DIFFICULTY), LATE_DIFFICULTY, device)
+        want = int(single(arrays, 0)[0])
+        if 2 * LATE_BATCH <= want < late_span:
+            break
+    else:
+        raise AssertionError("no seed with its earliest hit in slot 2 or 3")
+    got = int(mesh_backend(MESH_SLOTS, LATE_BATCH)._make_step(late_span)(arrays, 0)[0])
+    plain = plain_first_hit(arrays, 0, late_span)
+    if not got == want == plain:
+        raise AssertionError(f"late hit: {MESH_SLOTS} slots {got}, cuda {want}, plain {plain}")
+    late = {"seed": seed, "difficulty": LATE_DIFFICULTY, "offset": got, "slot": got // LATE_BATCH}
+
+    near = mesh_backend(NEAR_SLOTS, batch)
+    near_step = near._make_step(near.step_span)
+    miss = int(near_step(arrays_for(prefix_for(99, NO_HIT), NO_HIT, device), 0)[0])
+    if miss != near.step_span:
+        raise AssertionError(f"{NEAR_SLOTS}-slot miss {miss} != span {near.step_span}")
+    past = 1 << 31 if near.step_span > 1 << 31 else near.step_span // 2
+    solo = get_backend("cuda", batch=batch, sub=sub, threads=threads, device=device)
+    for seed in range(200, 232):
+        prefix = prefix_for(seed, NEAR_DIFFICULTY)
+        truth = solo.search(prefix, 0, near.step_span, NEAR_DIFFICULTY)
+        if truth.nonce is not None and truth.nonce >= past:
+            break
+    else:
+        raise AssertionError(f"no seed with its earliest hit past {past}")
+    got = int(near_step(arrays_for(prefix, NEAR_DIFFICULTY, device), 0)[0])
+    res = near.search(prefix, 0, near.step_span, NEAR_DIFFICULTY)
+    if not got == truth.nonce == res.nonce or res.hashes_done != truth.hashes_done:
+        raise AssertionError(f"{NEAR_SLOTS}-slot step {got}, search {res}, cuda {truth}")
+    if not meets_target(sha256d(prefix + got.to_bytes(4, "big")), NEAR_DIFFICULTY):
+        raise AssertionError(f"near-2**32 hit {got} fails its target")
+    near_line = {"slots": NEAR_SLOTS, "span": near.step_span, "miss": miss, "seed": seed,
+                 "difficulty": NEAR_DIFFICULTY, "offset": got, "slot": got // batch}  # fmt: skip
+
+    # -- rates: full scans and the slots' step ---------------------------
+    scans = {}
+    for slots in (1, MESH_SLOTS):
+        be = mesh_backend(slots, batch)
+        t0 = time.perf_counter()
+        res = be.search(prefix_for(99, NO_HIT), 0, SCAN_COUNT, NO_HIT)
+        scan_s = time.perf_counter() - t0
+        if res.nonce is not None or res.hashes_done != SCAN_COUNT:
+            raise AssertionError(f"{slots}-slot scan returned {res}")
+        scans[slots] = {"step_span": be.step_span, "scan_s": scan_s, "ghps": SCAN_COUNT / scan_s / 1e9}
+    arrays = arrays_for(prefix_for(99, NO_HIT), NO_HIT, device)
+    step4 = mesh_backend(MESH_SLOTS, batch)._make_step(MESH_SLOTS * batch)
+    step_ms = cuda_ms(lambda: step4(arrays, 0), reps=5) if on_card else None
+    # The plain body on the same slots, at PLAIN_CHUNK a slot (the kernel's
+    # step at that shape beside it).
+    small = mesh_backend(MESH_SLOTS, PLAIN_CHUNK)
+    plain_step = sharded.jit_sharded_step(small.mesh, PLAIN_CHUNK, "plain")
+    small_step = small._make_step(small.step_span)
+    # The kernel's 4-slot step against the plain one on the same inputs: a
+    # miss, and a fixture whose earliest hit lies past slot 0 (about two
+    # hits a span at this difficulty).
+    small_diff = small.step_span.bit_length() - 2
+    whole = cb.cuda_search_fn(small.step_span, sub, threads)
+    for seed in range(300, 364):
+        hit_arrays = arrays_for(prefix_for(seed, small_diff), small_diff, device)
+        if PLAIN_CHUNK <= int(whole(hit_arrays, 0)[0]) < small.step_span:
+            break
+    else:
+        raise AssertionError(f"no seed with its earliest hit past slot 0 at difficulty {small_diff}")
+    small_cases = {}
+    for name, case in (("miss", arrays), ("hit", hit_arrays)):
+        got, want = int(small_step(case, 0)[0]), int(plain_step(case, 0)[0])
+        if got != want or (name == "miss") != (got == small.step_span):
+            raise AssertionError(f"{MESH_SLOTS}-slot step on the {name}: kernel {got}, plain {want}")
+        small_cases[name] = got
+    mesh_err = 0  # every comparison above raised unless exact
+    small_ms = {"slot_batch": PLAIN_CHUNK, "plain_ms": cuda_ms(lambda: plain_step(arrays, 0), reps=1),
+                "ms": cuda_ms(lambda: small_step(arrays, 0), reps=5)} if on_card else {}  # fmt: skip
+    small_ms.update({"difficulty": small_diff, "seed": seed, "offsets": small_cases, "max_abs_err": mesh_err})
+
+    # -- BASELINE config 5: mine --backend sharded --difficulty 28 --------
+    mined = {}
+    headers, times, hashes = mine_chain(Miner(backend=get_backend("cuda", device=device)), MESH_DIFFICULTY, MESH_BLOCKS)
+    want_nonces = [h.serialize() for h in headers]
+    mined["cuda"] = mine_report("cuda", MESH_DIFFICULTY, times, hashes)
+    launches_mine = 0
+    for slots in (1, MESH_SLOTS):
+        backend = get_backend("sharded", device=slot_dev, slots_per_device=slots)
+        search.launches = 0
+        headers, times, hashes = mine_chain(Miner(backend=backend), MESH_DIFFICULTY, MESH_BLOCKS)
+        launches = search.launches
+        if on_card and launches <= 0:
+            raise AssertionError(f"{slots}-slot mining launched the search kernel no time")
+        if [h.serialize() for h in headers] != want_nonces:
+            raise AssertionError(f"{slots}-slot sharded mining sealed other headers than cuda's")
+        mined[f"sharded_{slots}"] = {**mine_report("sharded", MESH_DIFFICULTY, times, hashes), "launches": launches,
+                                     "nonces": [h.nonce for h in headers]}  # fmt: skip
+        launches_mine += launches
+
+    # -- the sharded MSM ---------------------------------------------------
+    meshes = {s: sharded.make_mesh(s, slot_dev, s, across_processes=False) for s in (1, MESH_SLOTS)}
+    rows = [r.tobytes() for r in m.prepare(sig_batch).encodings]
+    per = -(-len(rows) // MESH_SLOTS)
+
+    def bad_r_in(slot: int) -> list:
+        tr = list(sig_batch)
+        i = next(i for i, t in enumerate(tr) if rows.index(t[1][:32]) // per == slot)
+        pub, sig, msg = tr[i]
+        tr[i] = (pub, tr[i - 1][1][:32] + sig[32:], msg)  # another valid point: only the sum catches it
+        return tr
+
+    n = len(sig_batch)
+    msm_cases = {
+        "valid": (sig_batch, True),
+        **{f"bad R in slot {k}": (bad_r_in(k), False) for k in range(MESH_SLOTS)},
+        "torsion cancel": (sig_batch[:-1] + [sv.torsion_triple(cancel=True)], False),
+        "torsion reject": (sig_batch[:-1] + [sv.torsion_triple(cancel=False)], False),
+    }
+    verdicts, msm_launches = {}, 0
+    for name, (tr, want) in msm_cases.items():
+        for slots, mesh in meshes.items():
+            before = msm.launches
+            verdicts[f"{name} @{slots}"] = got = m.verify_batch_device(tr, mesh=mesh)
+            if got is not want or (on_card and msm.launches - before != slots):
+                raise AssertionError(f"MSM {name} on {slots} slots: {got}, {msm.launches - before} launches")
+            msm_launches += msm.launches - before
+    msm_us = {}
+    for slots, mesh in meshes.items():
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            if not m.verify_batch_device(sig_batch, mesh=mesh):
+                raise AssertionError(f"the valid batch failed on {slots} slots")
+            runs.append(time.perf_counter() - t0)
+        msm_us[slots] = 1e6 * min(runs) / n
+    msm_launches_timed = 0
+    msm_ms = msm_plain_ms = msm_err = None
+    points = [len(p.encodings) for p in m.split(m.prepare(sig_batch), MESH_SLOTS)]
+    if on_card:
+        mesh4 = meshes[MESH_SLOTS]
+        inputs = []
+        for i, part in enumerate(m.split(m.prepare(sig_batch), MESH_SLOTS)):
+            with mesh4.stream(i):
+                inputs.append(m.to_device(part, mesh4.devices[i]))
+        # Each slot's slice through the kernels on its stream against the
+        # plain version on the same tensors: decoded limbs, flags, all-ok
+        # and the canonical partial sum, exact; and the big-integer oracle.
+        msm_err = 0
+        for i in range(MESH_SLOTS):
+            with mesh4.stream(i):
+                err, oracle, got = decode_gate_msm_vs_plain(ce, m, e, *inputs[i])
+            if err or not oracle or int(got.result[0]) != 1:
+                raise AssertionError(f"MSM slice {i} of {MESH_SLOTS}: kernel vs plain max_abs_err {err}, "
+                                     f"oracle {oracle}, all-ok {int(got.result[0])}")  # fmt: skip
+            msm_err = max(msm_err, err)
+        before = msm.launches
+        msm_ms = mesh_ms(mesh4, lambda i: ce.decode_gate_msm(*inputs[i]))
+        msm_launches_timed = msm.launches - before
+        msm_plain_ms = mesh_ms(mesh4, lambda i: ce.plain_decode_gate_msm(*inputs[i]), reps=1)
+    msm_line = {"verdicts": verdicts, "launches": msm_launches, "us_per_sig": msm_us, "slice_points": points,
+                "ms_4_slots": msm_ms, "plain_ms_4_slots": msm_plain_ms, "bound_ms_4_slots": msm_bound(points),
+                "timing_launches": msm_launches_timed, "max_abs_err_4_slots": msm_err}  # fmt: skip
+
+    # -- a pod of two processes on the card, then its follower killed ------
+    with tempfile.TemporaryDirectory() as tmp, stopped_at_exit([]) as children:
+        tmp = pathlib.Path(tmp)
+        listener = spawn_node(["--port", "0", "--difficulty", str(POD_DIFFICULTY), "--no-mine", "--deadline", "stdin"],
+                              tmp / "listener.log", device, children)  # fmt: skip
+        listen_port = json.loads(read_line(listener))["ready"]
+        coord = free_port_block(1)
+        t0 = time.perf_counter()
+        leader = spawn_pod(coord, 0, ["--duration", str(POD_S), "--port", "0", "--peers", f"127.0.0.1:{listen_port}",
+                                      "--miner-id", "pod", "--store", str(tmp / "pod.chain")],
+                           tmp / "leader.log", device, children)  # fmt: skip
+        follower = spawn_pod(coord, 1, ["--duration", str(POD_S)], tmp / "follower.log", device, children)
+        leader_out, _ = leader.communicate(timeout=POD_S + CHILD_TIMEOUT_S)
+        follower_out, _ = follower.communicate(timeout=CHILD_TIMEOUT_S)
+        pod_wall_s = time.perf_counter() - t0
+        final_listener = stop_node(listener)
+        if leader.returncode != 0 or follower.returncode != 0:
+            raise AssertionError(f"pod exits: leader {leader.returncode}, follower {follower.returncode}")
+        exits = {"leader": leader.returncode, "follower": follower.returncode, "listener": listener.returncode}
+        final_leader = json.loads(leader_out.strip().splitlines()[-1])
+        mirrored = json.loads(follower_out.strip().splitlines()[-1])
+        marker = "pod searches: "
+        (searches,) = [int(line.split(marker, 1)[1]) for line in (tmp / "leader.log").read_text().splitlines()
+                       if marker in line]  # fmt: skip
+        if mirrored != {"config": "pod", "role": "follower", "searches": searches} or searches <= 0:
+            raise AssertionError(f"follower {mirrored}, leader searches {searches}")
+        if (final_listener["tip"], final_listener["height"]) != (final_leader["tip"], final_leader["height"]):
+            raise AssertionError(f"listener at {final_listener['height']}, leader at {final_leader['height']}")
+        if final_leader["height"] <= 0 or final_listener["blocks_mined"] != 0:
+            raise AssertionError(f"pod mined {final_leader['height']}; listener mined {final_listener['blocks_mined']}")
+        pod_blocks = stored_blocks(tmp / "pod.chain", POD_DIFFICULTY)
+        if len(pod_blocks) != final_leader["height"]:
+            raise AssertionError(f"pod store of {len(pod_blocks)} blocks, leader at {final_leader['height']}")
+        (launches_leader,), (launches_follower,) = logged_launches(tmp / "leader.log"), logged_launches(tmp / "follower.log")
+        if on_card and min(launches_leader["sha256d_search"], launches_follower["sha256d_search"]) <= 0:
+            raise AssertionError(f"pod launches: leader {launches_leader}, follower {launches_follower}")
+
+        env = {**os.environ, "P1_POD_GRACE_S": POD_GRACE_S}
+        coord = free_port_block(1)
+        chain = tmp / "failover.chain"
+        t1 = time.perf_counter()
+        leader = spawn_pod(coord, 0, ["--duration", str(POD_FAILOVER_S), "--port", "0", "--miner-id", "pod",
+                                      "--store", str(chain)], tmp / "leader2.log", device, children, env)  # fmt: skip
+        follower = spawn_pod(coord, 1, ["--duration", str(POD_FAILOVER_S)], tmp / "follower2.log", device,
+                             children, env)  # fmt: skip
+        pre_kill = wait_blocks(chain, POD_DIFFICULTY, 3, CHILD_TIMEOUT_S)
+        follower.send_signal(signal.SIGKILL)
+        follower_rc = follower.wait(timeout=30)
+        t_kill = time.perf_counter()
+        wait_blocks(chain, POD_DIFFICULTY, pre_kill + 3, float(POD_GRACE_S) + CHILD_TIMEOUT_S)
+        regrow_s = time.perf_counter() - t_kill
+        leader.communicate(timeout=POD_FAILOVER_S + CHILD_TIMEOUT_S)
+        failover_wall_s = time.perf_counter() - t1
+        log2 = (tmp / "leader2.log").read_text()
+        if "failing over to solo mining" not in log2 or leader.returncode != 0:
+            raise AssertionError(f"leader exit {leader.returncode} without failover: {log2[-2000:]}")
+        final_blocks = len(stored_blocks(chain, POD_DIFFICULTY))
+        solo_launches = logged_launches(tmp / "leader2.log")
+    pod_line = {
+        "wall_s": pod_wall_s, "height": final_leader["height"], "tip": final_leader["tip"],
+        "listener_height": final_listener["height"], "searches_leader": searches, "searches_follower": mirrored["searches"],
+        "hashes_per_sec": final_leader["hashes_per_sec"], "time_to_block_s": final_leader["time_to_block_s"],
+        "launches_leader": launches_leader, "launches_follower": launches_follower,
+        "exits": exits,
+        "failover": {"blocks_before_kill": pre_kill, "follower_exit": follower_rc, "regrow_3_blocks_s": regrow_s,
+                     "leader_exit": leader.returncode, "final_blocks": final_blocks, "wall_s": failover_wall_s,
+                     "grace_s": float(POD_GRACE_S), "launches_logged": solo_launches},
+    }  # fmt: skip
+
+    # -- dryrun_multichip ------------------------------------------------
+    out = io.StringIO()
+    before, t0 = search.launches, time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        graft_entry.dryrun_multichip(MESH_SLOTS, device=device)
+    dryrun_s, dryrun_launches = time.perf_counter() - t0, search.launches - before
+    dryrun = out.getvalue().strip()
+    if not dryrun.startswith(f"dryrun_multichip ok: {MESH_SLOTS}-device mesh (platform={device})"):
+        raise AssertionError(f"dryrun_multichip: {dryrun!r}")
+
+    pod_search = launches_leader.get("sha256d_search", 0) + launches_follower.get("sha256d_search", 0)
+    line = {"nvidia_smi": smi, "first_hit_cases": cases, "late_hit": late, "near_2p32": near_line,
+            "scans": scans, "step_ms_4_slots": step_ms, "bound_ms_4_slots": MESH_SLOTS * search_bound_ms,
+            "step_small": small_ms, "mine": mined, "msm": msm_line, "pod": pod_line,
+            "dryrun": {"line": dryrun, "s": dryrun_s, "launches": dryrun_launches}}  # fmt: skip
+    emit({"phase": "multichip", **line})
+    return line, {"sha256d_search": launches_mine + pod_search, "ed25519_msm": msm_launches,
+                  "sha256d_search_mine": launches_mine, "sha256d_search_pod": pod_search,
+                  "sha256d_search_err": mesh_err, "ed25519_msm_err": msm_err or 0}
+
+
 def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
     """(ALU, FMA) instructions of the reference's operations on ``points``
     points and one batch, at ``per_op``'s (ALU, FMA) cost per operation."""
@@ -1485,6 +1954,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    adopt_orphans()
 
     from p1_tpu_torch.benchmarks import vpu_roofline as vr
     from p1_tpu_torch.cli import mine_chain, mine_report
@@ -1543,6 +2013,7 @@ def main() -> int:
     # -- 2. kernel vs plain version ---------------------------------------
     cases = 0
     max_err = 0
+    fixtures = []  # (span, seed, difficulty, base, first hit): phase 14 runs them on meshes
     for batch_ in (_RAMP_FLOOR, batch):
         step = cb.cuda_search_fn(batch_, sub, threads)
         for seed, diff in enumerate((0, 8, 16, NO_HIT)):
@@ -1555,6 +2026,7 @@ def main() -> int:
                     raise AssertionError(
                         f"kernel {got} != plain {want} (batch {batch_}, d{diff}, base {base:#x})"
                     )
+                fixtures.append((batch_, seed, diff, base, want))
                 cases += 1
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "cases": cases, "max_abs_err": max_err})
@@ -1641,7 +2113,7 @@ def main() -> int:
     verify, search_launches = phase_replay(cuda_verify, sass, sms, peak, white_paper)
 
     # -- 7-9. Ed25519 signature validation on the card ----------------------
-    ed25519 = phase_ed25519(sass, sms, peak)
+    ed25519, sig_batch = phase_ed25519(sass, sms, peak)
 
     # -- 10. the untrusted load of a chain store -----------------------------
     revalidate, built_store = phase_revalidate(cuda_ed25519.ed25519_msm)
@@ -1662,20 +2134,41 @@ def main() -> int:
     # -- 13. the native host tier, and replay --method all -----------------
     _, native_launches = phase_native(native_build_s, lambda span: cb.cuda_search_fn(span, sub, threads), batch)
     verify["launches_native_replay"] = native_launches["verify_chain"]
+
+    # -- 14. the multi-chip plane: meshes of slots, the sharded MSM, a pod --
+    def msm_bound_ms(slice_points: list[int]) -> float:  # each slice a batch of its own
+        alu = fma = 0
+        for n in slice_points:
+            a, f = ed25519_work(n, ED_OP_ALU_FMA)
+            alu, fma = alu + a, fma + f
+        return peak.bound_ms(alu, alu + fma, sms, fma=fma)
+
+    _, mesh_launches = phase_multichip(fixtures, batch, sub, threads, bound_ms, sig_batch, msm_bound_ms, smi)
+    ed25519["launches_multichip"] = mesh_launches["ed25519_msm"]
+    ed25519["launches"] += mesh_launches["ed25519_msm"]
+    ed25519["max_abs_err"] = max(ed25519["max_abs_err"], mesh_launches["ed25519_msm_err"])
+    max_err = max(max_err, mesh_launches["sha256d_search_err"])
     ed25519["revalidate"] = {k: revalidate[k] for k in ("blocks", "signatures", "untrusted_s", "blocks_per_s", "us_per_sig")}
+
+    # -- every process this run started has ended --------------------------
+    stop_resource_tracker()
+    if left := stop_children():
+        raise AssertionError(f"processes still running at the end: {left}")
 
     print(json.dumps({"kernels": [
         {
             "name": "sha256d_search", "route": "cuda",
             "source": "p1_tpu_torch/hashx/csrc/sha256d_search.cu",
             "replaces": "p1_tpu/hashx/pallas_backend.py:67",
-            "launches": launches + search_node + search_net, "max_abs_err": max_err,
+            "launches": launches + search_node + search_net + mesh_launches["sha256d_search"], "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "library_ms": None,
             "bound_ms_white_paper": bound_wp_ms, "bound_ms_measured_rate": bound_measured_ms,
             "launches_mine": launches, "launches_replay": search_launches,
             "launches_node": search_node, "launches_net": search_net,
             "launches_native_replay": native_launches["sha256d_search"],
+            "launches_multichip": mesh_launches["sha256d_search_mine"],
+            "launches_pod": mesh_launches["sha256d_search_pod"],
         },
         roof,
         verify,
@@ -1690,4 +2183,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:  # a failed phase leaves no process behind either
+        stop_resource_tracker()
+        stop_children()

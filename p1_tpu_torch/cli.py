@@ -29,6 +29,15 @@ JSON (``node`` takes ``--device`` in place of the reference's
   python -m p1_tpu_torch tx --key K --recipient R --amount 5 --port 9444
   python -m p1_tpu_torch status|metrics|account|fees|proof|headers|watch|maintain ...
 
+BASELINE config 5, the nonce search sharded over a mesh of slots
+(``--backend sharded``: one slot on each card), in one process
+or as a pod of processes that mine in lockstep over gloo, the leader
+gossiping:
+
+  python -m p1_tpu_torch mine --backend sharded --difficulty 28 --blocks 5
+  python -m p1_tpu_torch pod --coordinator 127.0.0.1:7000 --num-hosts 2 --host-id 0 --duration 60
+  python -m p1_tpu_torch pod --coordinator 127.0.0.1:7000 --num-hosts 2 --host-id 1 --duration 60
+
 A node mines through the search kernel (``--backend cuda``, the
 default) and sends the signature batches of deep sync, mempool pages
 and ``--revalidate-store`` to ``ed25519_msm.cu``; ``--device cpu`` runs
@@ -52,7 +61,8 @@ def _add_common(p: argparse.ArgumentParser, device_choices=None) -> None:
     p.add_argument(
         "--backend",
         default="cuda",
-        help="hash backend registry name (cuda; host only: cpu, numpy, native)",
+        help="hash backend registry name (cuda, sharded: the search over "
+        "a mesh of slots; host only: cpu, numpy, native)",
     )
     p.add_argument("--batch", type=int, default=None, help="device batch override")
     p.add_argument(
@@ -134,7 +144,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("mine", help="mine N blocks from genesis (configs 1/2)")
+    p = sub.add_parser("mine", help="mine N blocks from genesis (configs 1/2/5)")
     _add_common(p)
     p.add_argument("--chunk", type=int, default=None, help="miner abort granularity")
     p.add_argument("--blocks", type=int, default=10)
@@ -616,6 +626,43 @@ def build_parser() -> argparse.ArgumentParser:
         "(default: retry forever)",
     )
     _add_retarget(p)
+
+    p = sub.add_parser(
+        "pod",
+        help="multi-process pod miner: N processes, one miner on the network",
+    )
+    # Not _add_common: the pod always runs the sharded mesh backend, so a
+    # --backend flag would be a silent no-op.  chunk/batch MUST match
+    # across processes (PodMiner validates at startup).
+    p.add_argument("--difficulty", type=int, default=16)
+    p.add_argument("--batch", type=int, default=None, help="per-slot batch")
+    p.add_argument("--chunk", type=int, default=None, help="miner abort granularity")
+    p.add_argument("--coordinator", required=True, help="host:port of process 0")
+    p.add_argument("--num-hosts", type=int, required=True)
+    p.add_argument("--host-id", type=int, required=True)
+    p.add_argument(
+        "--device",
+        default="cuda",
+        choices=("cuda", "cpu"),
+        help="where this process's slots run: cuda (default; the search "
+        "kernel, fails without a card) or cpu (the plain PyTorch version); "
+        "the pod's collectives ride gloo either way",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0, help="leader's p2p port")
+    p.add_argument("--peers", nargs="*", default=[], help="host:port ...")
+    p.add_argument("--miner-id", default=None)
+    p.add_argument("--store", default=None)
+    p.add_argument(
+        "--duration",
+        type=float,
+        default=None,
+        help="leader: stop mining after N s; both roles also arm a "
+        "peer-loss watchdog (force-exit after P1_POD_GRACE_S, default "
+        "600 s, with no lockstep progress — the grace covers the first "
+        "search's kernel build)",
+    )
+    p.set_defaults(no_mine=False, deadline=None, status_interval=10.0, backend="sharded")
 
     p = sub.add_parser("net", help="N-node localhost net (config 4)")
     _add_common(p, device_choices=("cuda", "cpu"))
@@ -1596,6 +1643,96 @@ def cmd_net(args) -> int:
     return run_net(args)
 
 
+# -- pod -----------------------------------------------------------------
+
+
+def cmd_pod(args) -> int:
+    """Multi-process mining (BASELINE config 5, multi-process form): every
+    process joins one gloo process group and mirrors the same sharded
+    search in lockstep; process 0 additionally runs the p2p node, so the
+    whole pod presents as a single miner on the gossip network.
+
+    Failure handling: each role arms a no-progress watchdog (bounded runs
+    only; ``parallel/watchdog.py``).  A follower that loses the pod exits
+    3 (``POD_LOST_EXIT``) — restart it with the same ``--host-id`` under
+    any supervisor once the pod coordinator is back.  The LEADER owns the
+    chain store and the gossip identity, so it does NOT go dark: the
+    watchdog re-execs it into single-process sharded mining against the
+    same store/port/peers (``pod_leader_failover``) and the chain keeps
+    growing while the pod is rebuilt.  Every death path leaves by
+    ``os._exit``: a process blocked in a collective whose peer died may
+    never return on its own."""
+    import os
+
+    import torch.distributed as dist
+
+    from p1_tpu_torch.hashx import get_backend
+    from p1_tpu_torch.node.runner import kernel_launches, run_node
+    from p1_tpu_torch.parallel import PodMiner, init_distributed
+    from p1_tpu_torch.parallel.watchdog import POD_LOST_EXIT, PodWatchdog, grace_s, pod_leader_failover
+
+    is_leader = args.host_id == 0
+    if is_leader:
+        # The node's serial signature rung, loaded (on a host that has not
+        # built it, compiled) before the pod forms: not in the gap before
+        # the first lockstep point, which the followers time.
+        from p1_tpu_torch.core import _ed25519_native
+
+        _ed25519_native.load()
+    init_distributed(args.coordinator, args.num_hosts, args.host_id, timeout_s=grace_s())
+    # Arm the watchdog BEFORE any blocking collective (the construction
+    # handshake included): a peer that dies during startup must not hang a
+    # bounded run.  Long-running services (no --duration) supervise
+    # externally.
+    watchdog = None
+    if args.duration is not None:
+        deadline = time.time() + args.duration
+        on_trip = (lambda: pod_leader_failover(args, deadline)) if is_leader else None
+        watchdog = PodWatchdog(role="leader" if is_leader else "follower", on_trip=on_trip)
+    try:
+        kwargs = {"batch": args.batch} if args.batch else {}
+        backend = get_backend("sharded", device=args.device, **kwargs)
+        miner = PodMiner(is_leader=is_leader, backend=backend, chunk=args.chunk)
+    except (ValueError, RuntimeError) as e:
+        # The pod is already broken (a config mismatch, no card): the
+        # peers are waiting in a collective this process will never join,
+        # so leave at once and loudly.
+        print(f"pod startup failed: {e}", file=sys.stderr, flush=True)
+        os._exit(2)
+    logging.info(
+        "pod process %d/%d: %d global slots, %s",
+        args.host_id,
+        args.num_hosts,
+        backend.n_devices,
+        "leader" if is_leader else "follower",
+    )
+    if watchdog is not None:
+        miner.heartbeat = watchdog.beat
+    if not is_leader:
+        try:
+            mirrored = miner.follow()
+        except Exception as e:
+            # A lost peer makes gloo raise out of the collective (or
+            # block, which the watchdog ends): same event, same exit code.
+            print(f"pod follower lost the mesh: {e}", file=sys.stderr, flush=True)
+            os._exit(POD_LOST_EXIT)
+        if watchdog is not None:
+            watchdog.cancel()
+        logging.info("kernel launches: %s", json.dumps(kernel_launches()))
+        print(json.dumps({"config": "pod", "role": "follower", "searches": mirrored}), flush=True)
+        dist.destroy_process_group()
+        return 0
+    sys.setswitchinterval(0.0005)  # as cmd_node: the loop beside the miner thread
+    try:
+        return asyncio.run(run_node(args, miner=miner))
+    finally:
+        miner.shutdown()
+        if watchdog is not None:
+            watchdog.cancel()
+        logging.info("pod searches: %d", miner.searches)
+        dist.destroy_process_group()
+
+
 # -- keygen and the store tools (engines in chain/tooling.py) --------------
 
 
@@ -1682,6 +1819,7 @@ def main(argv=None) -> int:
         "headers": cmd_headers,
         "watch": cmd_watch,
         "net": cmd_net,
+        "pod": cmd_pod,
         "balances": cmd_balances,
         "compact": cmd_compact,
         "fsck": cmd_fsck,

@@ -10,8 +10,8 @@ from p1_tpu_torch.hashx.backend import (
 from p1_tpu_torch.hashx import cpu as _cpu  # noqa: F401
 from p1_tpu_torch.hashx import numpy_backend as _numpy  # noqa: F401
 
-# The kernel backend imports torch and the native one builds a library:
-# both load on first use.
+# The kernel backends import torch and the native one builds a library:
+# all load on first use.
 from p1_tpu_torch.hashx.backend import register_lazy as _register_lazy
 
 
@@ -21,6 +21,12 @@ def _load_cuda():
     return cuda_backend.CudaBackend
 
 
+def _load_sharded():
+    from p1_tpu_torch.hashx import sharded
+
+    return sharded.ShardedBackend
+
+
 def _load_native():
     from p1_tpu_torch.hashx import native_backend
 
@@ -28,6 +34,7 @@ def _load_native():
 
 
 _register_lazy("cuda", _load_cuda)
+_register_lazy("sharded", _load_sharded)
 _register_lazy("native", _load_native)
 
 __all__ = [

@@ -127,13 +127,21 @@ def _check_tile(batch: int, sub: int, threads: int) -> int:
     return sub * threads
 
 
+def plain_search_step(arrays: SearchArrays, nonce_base: int, batch: int) -> torch.Tensor:
+    """The search step's plain PyTorch version, on the arrays' device."""
+    idx = search_step(arrays.midstate, arrays.tail, arrays.target, nonce_base, batch)
+    return idx.to(torch.int32).reshape(1)
+
+
 @functools.cache
 def cuda_search_fn(
     batch: int, sub: int = _DEFAULT_SUB, threads: int = _DEFAULT_THREADS
 ) -> StepFn:
     """The search step (analog of ``pallas_search_fn``): (SearchArrays,
     nonce_base) -> (1,) int32 first-hit offset in [0, batch] (``batch`` =
-    miss), on the arrays' device."""
+    miss), on the arrays' device, or on ``device`` when given (the kernel
+    reads only ``arrays.words``, so a mesh slot on another card passes
+    its own)."""
     block = _check_tile(batch, sub, threads)
     if batch % block:
         raise ValueError(f"batch {batch} not a multiple of the {block} tile")
@@ -143,11 +151,10 @@ def cuda_search_fn(
         # mask every hit.
         raise ValueError(f"batch {batch} must be < 2**31")
 
-    def step(arrays: SearchArrays, nonce_base: int) -> torch.Tensor:
-        device = arrays.device
+    def step(arrays: SearchArrays, nonce_base: int, device: torch.device | None = None) -> torch.Tensor:
+        device = arrays.device if device is None else device
         if device.type == "cpu":
-            idx = search_step(arrays.midstate, arrays.tail, arrays.target, nonce_base, batch)
-            return idx.to(torch.int32).reshape(1)
+            return plain_search_step(arrays, nonce_base, batch)
         if device.type != "cuda":
             raise ValueError(f"no search kernel for device {device}")
         out = torch.full((1,), batch, dtype=torch.int32, device=device)

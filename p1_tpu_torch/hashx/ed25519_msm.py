@@ -43,8 +43,15 @@ windows of q (``scalar_mul_windows``), and the MSM as Horner over
 windows with a tree sum of the batch's table rows per window
 (``msm_horner``, the JAX package's ``_msm_tree``).
 
-Padding: the JAX package pads the points to a power of two per device
-for its tree.  The port does not pad: both sums take any count.
+The mesh split (``run_mesh``, the JAX package's ``shard_map`` over
+``_jit_gate_msm``): the batch is cut into one contiguous slice per mesh
+slot (``hashx/sharded.make_mesh``), each slice runs the kernels on its
+slot's stream, and the host ANDs the slots' flags and adds their partial
+sums in ``close``.  The JAX package pads the points to a power of two per
+device for its tree; the port's sums take any count, so it pads only the
+last slices to one length, with the identity at scalar 0, and launches no
+slice without a real point.  The default mesh is every card: one launch
+on one card.
 
 Semantics are the pure-Python batch's exactly — ``verify_batch_device``
 accepts iff ``_ed25519.verify_batch`` would (2⁻¹²⁸ coefficients aside),
@@ -551,35 +558,91 @@ def to_device(prep: Prepared, device: torch.device) -> tuple[torch.Tensor, torch
     return encodings, scalars
 
 
-def close(result) -> bool:
-    """The host's close on the read-back ``result`` (int32 [all-ok, X, Y,
-    Z, T]): every point decoded and gated, and Σ sᵢ·Pᵢ, the base-point
-    term among them, is the identity."""
-    result = np.asarray(result)
-    if result[0] != 1:
-        return False
-    x, y, z, _ = decode_point(result[1:])
-    return x == 0 and y == z
+def close(*results) -> bool:
+    """The host's close on the read-back ``results``, one per mesh slot
+    (int32 [all-ok, X, Y, Z, T] each): every point decoded and gated in
+    every slot, and the sum of the slots' partial sums, the base-point
+    term among them, is the identity.  Point addition is the cross-slot
+    reduction, as in the JAX package's host close."""
+    acc = _py._IDENT
+    for result in results:
+        result = np.asarray(result)
+        if result[0] != 1:
+            return False
+        x, y, z, _ = decode_point(result[1:])
+        if z == 0:
+            return False
+        # T from X, Y, Z: the sum needs extended coordinates (T = XY/Z).
+        acc = _py._pt_add(acc, (x, y, z, x * y * pow(z, -1, _py._P) % _py._P))
+    return _py._pt_equal(acc, _py._IDENT)
 
 
-def verify_batch_device(triples, device=None, rng=None) -> bool:
+#: The identity's encoding (y = 1, x = 0): a padding point that decodes,
+#: passes the gate and, with scalar 0, adds nothing.
+IDENTITY_ENC = (1).to_bytes(32, "little")
+
+
+def split(prep: Prepared, slots: int) -> list[Prepared]:
+    """The batch cut into ``slots`` contiguous slices of one length,
+    the last ones padded with the identity at scalar 0; a slice that
+    would hold no real point is left out (so B, the last real point, is
+    in exactly one slice)."""
+    n = len(prep.encodings)
+    per = -(-n // slots)
+    pad = per * slots - n
+    encodings = np.concatenate([prep.encodings, encode_encodings([IDENTITY_ENC] * pad)])
+    scalars = np.concatenate([prep.scalars, np.zeros((pad, SCALAR_WORDS), dtype=np.uint32)])
+    return [Prepared(encodings[lo : lo + per], scalars[lo : lo + per]) for lo in range(0, n, per)]
+
+
+def run_mesh(prep: Prepared, mesh) -> list[np.ndarray]:
+    """Decompression, the gate and the MSM of each slice of ``prep`` on
+    its slot of ``mesh`` (``hashx/sharded.make_mesh``, local slots only):
+    every slot's launch is queued on its own stream before any result is
+    read back.  Returns the slots' results, int32 [all-ok, X, Y, Z, T]."""
+    from p1_tpu_torch.hashx import cuda_ed25519  # imports this module
+
+    if mesh.group is not None:
+        raise ValueError("the signature MSM runs on one process's slots")
+    outs = []
+    for i, part in enumerate(split(prep, len(mesh.devices))):
+        with mesh.stream(i):  # the copies, the launch and the outputs on this stream
+            outs.append(cuda_ed25519.decode_gate_msm(*to_device(part, mesh.devices[i])))
+    results = []
+    for i, out in enumerate(outs):
+        with mesh.stream(i):
+            results.append(out.result.cpu().numpy())
+    return results
+
+
+@functools.lru_cache(maxsize=8)
+def default_mesh(device: torch.device, n_devices: int | None = None):
+    """The mesh a batch runs on when the caller names none: every card
+    (one slot each), or the CPU; ``n_devices`` takes the first ones."""
+    from p1_tpu_torch.hashx.sharded import make_mesh
+
+    return make_mesh(n_devices, device, across_processes=False)
+
+
+def verify_batch_device(triples, device=None, rng=None, mesh=None, n_devices: int | None = None) -> bool:
     """``_ed25519.verify_batch`` with decompression, the gate and the MSM
-    on the card.
+    on the card, split over the slots of a mesh.
 
     ``device`` is where the device stage runs: the card (None or "cuda",
     the default; raises without one) or "cpu" (the plain PyTorch
-    version).  ``rng``: see ``prepare``.  Accepts iff the pure-Python
-    batch would (same gate, same combination, independent randomness) —
-    False is NOT a serial verdict, exactly the ``verify_batch`` contract
-    everywhere else."""
-    from p1_tpu_torch.hashx import cuda_ed25519  # imports this module
-
+    version).  ``mesh`` (``hashx/sharded.make_mesh(...,
+    across_processes=False)``) splits the batch over its slots, one launch
+    each; by default every card (``n_devices``: the first ones), which is
+    one launch on one card.  ``rng``: see ``prepare``.  Accepts iff the
+    pure-Python batch would (same gate, same combination, independent
+    randomness) — False is NOT a serial verdict, exactly the
+    ``verify_batch`` contract everywhere else."""
     triples = list(triples)
     if not triples:
         return True
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = default_mesh(resolve_device(device), n_devices)
     prep = prepare(triples, rng)
     if prep is None:
         return False
-    out = cuda_ed25519.decode_gate_msm(*to_device(prep, dev))
-    return close(out.result.cpu().numpy())
+    return close(*run_mesh(prep, mesh))

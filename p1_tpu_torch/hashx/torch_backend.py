@@ -145,11 +145,16 @@ class PipelinedSearchMixin:
         ready.record()
         return host, ready
 
+    def _global_offset(self, offset: int) -> int:
+        """A step's offset as every process of the search sees it: this
+        process's own, unless the backend spans processes (``sharded``)."""
+        return offset
+
     def _drain_one(self, pending: list, nonce_start: int) -> SearchResult | None:
         base, valid, host, ready = pending.pop(0)
         if ready is not None:
             ready.synchronize()  # blocks until this step's copy is done
-        offset = int(host.reshape(-1)[0])
+        offset = self._global_offset(int(host.reshape(-1)[0]))
         if offset < valid:
             nonce = base + offset
             return SearchResult(nonce, nonce - nonce_start + 1)

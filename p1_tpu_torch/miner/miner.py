@@ -3,9 +3,9 @@
 The port of ``p1_tpu/miner/miner.py``, unchanged in behaviour: the miner
 asks its ``HashBackend`` to scan a *chunk* of nonce space per call (the
 ``cuda`` backend pipelines kernel steps within a chunk), checks the abort
-signal between chunks so a new chain tip cancels stale work promptly, and
-rolls the header timestamp to reopen the nonce space when all 2**32
-candidates are exhausted.
+signal between chunks (``_chunk_sync``) so a new chain tip cancels stale
+work promptly, and rolls the header timestamp to reopen the nonce space
+when all 2**32 candidates are exhausted.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ class Miner:
                 prefix = header.mining_prefix()
                 nonce = start_nonce
                 while nonce < NONCE_SPACE:
-                    if abort is not None and abort.is_set():
+                    if self._chunk_sync(abort):
                         stats.aborted = True
                         return None
                     count = min(self.chunk, NONCE_SPACE - nonce)
@@ -109,3 +109,13 @@ class Miner:
                 start_nonce = 0
         finally:
             stats.elapsed_s = time.perf_counter() - t0
+
+    def _chunk_sync(self, abort: threading.Event | None) -> bool:
+        """Per-chunk stop decision, called before every backend call.
+
+        Hook point for lockstep mining: the default is a local abort-event
+        check; the multi-process ``PodMiner`` (``parallel/pod.py``)
+        overrides it to broadcast the leader's decision so every process
+        leaves the chunk loop at the same iteration.
+        """
+        return abort is not None and abort.is_set()

@@ -14,6 +14,9 @@ cpu`` a node or net exits non-zero, and ``--verify-workers`` is reported.
 ``TestNativeTier`` runs the native host tier's commands: ``replay
 --method native|all``, ``mine --backend native|numpy`` and a node with
 ``--sig-backend native`` admitting a wallet's transfer on that rung.
+``TestSharded`` runs BASELINE config 5's commands: ``mine --backend
+sharded`` and its batch guard, and ``pod``'s parser and its exits
+(tests/test_torch_pod.py drives whole pods).
 
 Waiting for the simulation, serving and fault planes (ROADMAP Queue A
 item 7c): ``TestWatchCLI.test_watch_deadline_is_a_clean_exit`` (it runs
@@ -1028,3 +1031,91 @@ class TestNativeTier:
         validation = json.loads(out.strip().splitlines()[-1])["validation"]
         assert validation["backend"] == "native"
         assert validation["backends"]["native"] >= 1 and validation["backends"]["pure-python"] == 0
+
+
+class TestSharded:
+    """``mine --backend sharded`` and ``pod``, on the CPU."""
+
+    @pytest.mark.parametrize("batch", ["1024", "8192"])
+    def test_mine_sharded_seals_the_reference_chain(self, batch):
+        import p1_tpu.core as ref_core
+        from p1_tpu.miner import Miner as RefMiner
+
+        argv = ["mine", "--backend", "sharded", "--device", "cpu", "--batch", batch,
+                "--difficulty", "10", "--blocks", "2"]  # fmt: skip
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", *argv],
+            capture_output=True, text=True, timeout=110, cwd=REPO,
+        )  # fmt: skip
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert (out["config"], out["backend"], out["blocks"]) == ("mine", "sharded", 2)
+        # The nonces behind the report (its log): the JAX package's miner
+        # seals them.
+        nonces = [int(line.split("nonce=")[1].split()[0]) for line in proc.stderr.splitlines() if "nonce=" in line]
+        tip = ref_core.make_genesis(10).header
+        miner = RefMiner(backend="cpu", chunk=1 << 12)
+        want = []
+        for _ in range(2):
+            tip = miner.search_nonce(ref_core.BlockHeader(1, tip.block_hash(), bytes(32), tip.timestamp + 1, 10, 0))
+            want.append(tip.nonce)
+        assert nonces == want
+
+    def test_mine_sharded_refuses_a_batch_not_a_power_of_two(self):
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "mine", "--backend", "sharded", "--device", "cpu",
+             "--batch", "1000", "--blocks", "1"],
+            capture_output=True, text=True, timeout=110, cwd=REPO,
+        )  # fmt: skip
+        assert proc.returncode != 0 and "power of two" in proc.stderr
+
+    def test_mine_sharded_without_a_card_exits_nonzero(self):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: this checks the refusal without one")
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "mine", "--backend", "sharded", "--blocks", "1"],
+            capture_output=True, text=True, timeout=110, cwd=REPO,
+        )  # fmt: skip
+        assert proc.returncode != 0 and "CUDA device" in proc.stderr
+
+    def test_pod_parser(self):
+        from p1_tpu_torch.cli import build_parser
+
+        args = build_parser().parse_args(
+            ["pod", "--coordinator", "127.0.0.1:1", "--num-hosts", "2", "--host-id", "1", "--device", "cpu"]
+        )
+        assert (args.cmd, args.num_hosts, args.host_id, args.device) == ("pod", 2, 1, "cpu")
+        assert (args.backend, args.no_mine, args.deadline, args.status_interval) == ("sharded", False, None, 10.0)
+        assert (args.port, args.peers, args.duration) == (0, [], None)
+        for bad in (["pod", "--num-hosts", "2", "--host-id", "0"],  # no coordinator
+                    ["pod", "--coordinator", "h:1", "--num-hosts", "2", "--host-id", "0", "--platform", "cpu"],
+                    ["pod", "--coordinator", "h:1", "--num-hosts", "2", "--host-id", "0", "--device", "tpu"]):  # fmt: skip
+            proc = subprocess.run(
+                [sys.executable, "-m", "p1_tpu_torch", *bad], capture_output=True, text=True, timeout=110, cwd=REPO
+            )
+            assert proc.returncode == 2, bad
+
+    def test_pod_mismatch_exits_2(self):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coord = sock.getsockname()[1]
+        base = [sys.executable, "-m", "p1_tpu_torch", "pod", "--coordinator", f"127.0.0.1:{coord}",
+                "--num-hosts", "2", "--device", "cpu", "--difficulty", "12", "--duration", "4"]  # fmt: skip
+        procs = [
+            subprocess.Popen([*base, "--host-id", "0", "--batch", "256"], stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True, cwd=REPO),
+            subprocess.Popen([*base, "--host-id", "1", "--batch", "512"], stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True, cwd=REPO),
+        ]  # fmt: skip
+        try:
+            errs = [p.communicate(timeout=90)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        assert [p.returncode for p in procs] == [2, 2]
+        assert all("pod config mismatch" in e for e in errs)

@@ -84,6 +84,11 @@ PORT_MODULES = (
     "p1_tpu_torch.hashx.native_backend",
     "p1_tpu_torch.hashx.numpy_backend",
     "p1_tpu_torch.core._ed25519_native",
+    "p1_tpu_torch.hashx.sharded",
+    "p1_tpu_torch.parallel",
+    "p1_tpu_torch.parallel.pod",
+    "p1_tpu_torch.parallel.watchdog",
+    "p1_tpu_torch.graft_entry",
 )
 
 

@@ -135,6 +135,58 @@ def test_abort_mid_search():
     assert miner.last_stats.hashes_done == SlowBackend.calls * 1024
 
 
+class _Counting(HashBackend):
+    """Never hits; records each chunk it is asked to scan."""
+
+    def __init__(self):
+        self.calls = []
+
+    def sha256d(self, data):
+        raise NotImplementedError
+
+    def search(self, prefix, start, count, difficulty):
+        self.calls.append(start)
+        return SearchResult(None, count)
+
+
+def test_chunk_sync_runs_once_per_chunk():
+    # The lockstep hook (the reference's ``Miner._chunk_sync``): called
+    # once before every backend call, with the search's abort event.
+    abort = threading.Event()
+    seen = []
+
+    class Hooked(Miner):
+        def _chunk_sync(self, ev):
+            seen.append(ev)
+            return len(seen) > 5
+
+    backend = _Counting()
+    miner = Hooked(backend=backend, chunk=1 << 20)
+    assert miner.search_nonce(_candidate(30), abort=abort) is None
+    assert miner.last_stats.aborted
+    assert len(backend.calls) == 5 and len(seen) == 6
+    assert backend.calls == [i << 20 for i in range(5)]
+    assert all(ev is abort for ev in seen)
+
+
+def test_chunk_sync_override_stops_at_that_chunk():
+    # An override's decision wins over the local event (a pod follower
+    # has none; the leader's byte decides), and the default is the event.
+    backend = _Counting()
+
+    class StopAtThird(Miner):
+        def _chunk_sync(self, ev):
+            return len(backend.calls) == 2
+
+    assert StopAtThird(backend=backend, chunk=1024).search_nonce(_candidate(30)) is None
+    assert backend.calls == [0, 1024]
+    ev = threading.Event()
+    assert Miner(backend=backend, chunk=1024)._chunk_sync(ev) is False
+    ev.set()
+    assert Miner(backend=backend, chunk=1024)._chunk_sync(ev) is True
+    assert Miner(backend=backend, chunk=1024)._chunk_sync(None) is False
+
+
 def test_timestamp_roll_on_exhaustion():
     class NeverHit(HashBackend):
         def sha256d(self, data):
