@@ -5,10 +5,11 @@
 
 Drives the port's paths, ``mine``, ``replay``, signature validation
 (``check_block`` under the ``device`` rung), the untrusted load of a
-chain store, a node and the 4-node net, the native host tier, and the
-multi-chip plane (sharded search and MSM, a pod), on the GPU and its
-host in phases, one JSON line each, and fails (non-zero exit, no last
-line) if any phase fails:
+chain store, a node and the 4-node net, the native host tier, the
+multi-chip plane (sharded search and MSM, a pod), and the simulation,
+serving and fault planes (``sim``, ``chaos``, ``serve``), on the GPU and
+its host in phases, one JSON line each, and fails (non-zero exit, no
+last line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
    ``p1_tpu_torch/hashx/csrc/sha256d_search.cu`` with ``nvcc`` for
@@ -151,6 +152,19 @@ line) if any phase fails:
    every search, each process's launches), then a pod whose follower is
    SIGKILLed (the leader fails over to solo mining, its store grows, exit
    codes); ``dryrun_multichip(4, device="cuda")``.
+15. planes — the simulation, serving and fault planes: ``sim
+   partition-heal --seed 0`` at its default 1,000 nodes and at 200,
+   ``sim fee-spam --seed 0`` and ``chaos --seed 0 --schedules 2`` through
+   ``cli.main`` with ``--device cuda`` (every block sealed by the search
+   kernel) and the 200- and 1,000-node runs with ``--device cpu``
+   (hashlib), the 1,000-node runs in turns (host, card, ..., card, host);
+   each run's trace digests must equal the JAX package's
+   (``SIM_DIGEST_*``, ``CHAOS_DIGESTS``), every header the card sealed
+   must be the plain version's earliest hit, and each run prints its wall
+   and virtual seconds, events, blocks sealed, ms of sealing a block and
+   its launches (``sha256d_search`` > 0 on the card, none on the host);
+   then ``serve --workers 2`` over phase 10's chain answers a headers and
+   a proof query through the port's client and drains on SIGTERM.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -169,7 +183,8 @@ child loads what is built.  The ``launches`` of ``sha256d_search`` and
 launches ride beside the search and verify kernels' totals
 (``launches_native_replay``); phase 14's sharded mining and pod
 processes add to ``sha256d_search``'s (``launches_multichip``,
-``launches_pod``), its sharded MSM to ``ed25519_msm``'s.
+``launches_pod``), its sharded MSM to ``ed25519_msm``'s, and phase 15's
+card meshes to both (``launches_planes``).
 """
 
 from __future__ import annotations
@@ -1175,19 +1190,40 @@ def stopped_at_exit(children: list):
             proc.wait()
 
 
-def read_line(proc: subprocess.Popen, timeout: float = CHILD_TIMEOUT_S) -> str:
-    """The child's next stdout line, or an error naming its exit."""
+def json_objects(text: str) -> list:
+    """The JSON objects ``text`` begins with, up to one still being written.
+    Processes that share one pipe (``serve``'s workers) can interleave one's
+    object with another's newline, so the stream is decoded object by
+    object, not by lines."""
+    decoder, objs, text = json.JSONDecoder(), [], text.lstrip()
+    while text:
+        try:
+            obj, end = decoder.raw_decode(text)
+        except json.JSONDecodeError:
+            break
+        objs.append(obj)
+        text = text[end:].lstrip()
+    return objs
+
+
+def read_objects(proc: subprocess.Popen, n: int, timeout: float = CHILD_TIMEOUT_S) -> list:
+    """The first ``n`` JSON objects a child prints on stdout, read from its
+    pipe without Python's buffer (whose readahead a select cannot see)."""
     import selectors
 
+    fd, raw, deadline = proc.stdout.fileno(), b"", time.monotonic() + timeout
     with selectors.DefaultSelector() as sel:
-        sel.register(proc.stdout, selectors.EVENT_READ)
-        if not sel.select(timeout):
-            proc.kill()
-            raise AssertionError(f"node pid {proc.pid} printed nothing in {timeout} s")
-    line = proc.stdout.readline()
-    if not line:
-        raise AssertionError(f"node pid {proc.pid} exited {proc.wait()} before printing")
-    return line
+        sel.register(fd, selectors.EVENT_READ)
+        while len(objs := json_objects(raw.decode(errors="replace"))) < n:
+            left = deadline - time.monotonic()
+            if left <= 0 or not sel.select(left):
+                proc.kill()
+                raise AssertionError(f"pid {proc.pid} printed {objs} in {timeout} s, not {n} objects")
+            chunk = os.read(fd, 1 << 16)
+            if not chunk:
+                raise AssertionError(f"pid {proc.pid} exited {proc.wait()} after printing {objs}")
+            raw += chunk
+    return objs[:n]
 
 
 def stop_node(proc: subprocess.Popen) -> dict:
@@ -1352,7 +1388,7 @@ def phase_node(built, device: str = "cuda", mine_difficulty: int = NODE_MINE_DIF
         t0 = time.perf_counter()
         a = spawn_node([*common, "--store", str(tmp / "a.chain"), "--revalidate-store"], tmp / "a.log", device,
                        children)  # fmt: skip
-        port_a = json.loads(read_line(a))["ready"]
+        port_a = read_objects(a, 1)[0]["ready"]
         boot_s = time.perf_counter() - t0
         booted = status_of(port_a, 1)
         if (booted["tip"], booted["height"], booted["validation"]["backends"]["device"]) != (
@@ -1365,7 +1401,7 @@ def phase_node(built, device: str = "cuda", mine_difficulty: int = NODE_MINE_DIF
         t1 = time.perf_counter()
         b = spawn_node([*common, "--store", str(tmp / "b.chain"), "--peers", f"127.0.0.1:{port_a}"],
                        tmp / "b.log", device, children)  # fmt: skip
-        port_b = json.loads(read_line(b))["ready"]
+        port_b = read_objects(b, 1)[0]["ready"]
         start_s = time.perf_counter() - t1
         synced = {"height": None, "mempool": None}
         while True:
@@ -1853,7 +1889,7 @@ def phase_multichip(fixtures: list, batch: int, sub: int, threads: int, search_b
         tmp = pathlib.Path(tmp)
         listener = spawn_node(["--port", "0", "--difficulty", str(POD_DIFFICULTY), "--no-mine", "--deadline", "stdin"],
                               tmp / "listener.log", device, children)  # fmt: skip
-        listen_port = json.loads(read_line(listener))["ready"]
+        listen_port = read_objects(listener, 1)[0]["ready"]
         coord = free_port_block(1)
         t0 = time.perf_counter()
         leader = spawn_pod(coord, 0, ["--duration", str(POD_S), "--port", "0", "--peers", f"127.0.0.1:{listen_port}",
@@ -1936,6 +1972,183 @@ def phase_multichip(fixtures: list, batch: int, sub: int, threads: int, search_b
     return line, {"sha256d_search": launches_mine + pod_search, "ed25519_msm": msm_launches,
                   "sha256d_search_mine": launches_mine, "sha256d_search_pod": pod_search,
                   "sha256d_search_err": mesh_err, "ed25519_msm_err": msm_err or 0}
+
+
+# -- phase 15: the simulation, serving and fault planes ------------------------
+
+#: The JAX package's trace digests (``python -m p1_tpu sim|chaos ...`` on
+#: the CPU): a mesh sealed on the card must trace them exactly.
+SIM_DIGEST_1000 = "1a90c90e904cdb5f525243cdaefd9074110f42ed105d144f192d88b34c992e35"
+SIM_DIGEST_200 = "46755031037272da105597ce48e6391bb61c1a73c63aeae54cdb100c9e514c3c"
+SIM_DIGEST_FEE_SPAM = "986147f113f444d99a5ea4fbb0e043fe48a284451764e364bc0c8e97cb08d44a"
+CHAOS_DIGESTS = (
+    "19b8c40852da7d521d1bded387aa410e83a9cb9c11d5c97127e608b015d00ff6",
+    "81cac254937e89291bd8cedc04def231cc413d37433206d435765c5c423ac898",
+)
+#: (label, argv of ``cli.main``, the digests it must print, on the card).
+#: The 1,000-node run goes host, card, ..., card, host, so its wall-time
+#: ratio is taken in turns; each run starts on the default signature rung
+#: (a ``--device cpu`` mesh pins the process's to the plain version).
+SIM_RUNS = (
+    ("partition_heal_1000_cpu", ["sim", "partition-heal", "--seed", "0"], (SIM_DIGEST_1000,), False),
+    ("partition_heal_1000", ["sim", "partition-heal", "--seed", "0"], (SIM_DIGEST_1000,), True),
+    ("partition_heal_200", ["sim", "partition-heal", "--seed", "0", "--nodes", "200"], (SIM_DIGEST_200,), True),
+    ("fee_spam", ["sim", "fee-spam", "--seed", "0"], (SIM_DIGEST_FEE_SPAM,), True),
+    ("chaos_2", ["chaos", "--seed", "0", "--schedules", "2"], CHAOS_DIGESTS, True),
+    ("partition_heal_200_cpu", ["sim", "partition-heal", "--seed", "0", "--nodes", "200"], (SIM_DIGEST_200,), False),
+    ("partition_heal_1000_again", ["sim", "partition-heal", "--seed", "0"], (SIM_DIGEST_1000,), True),
+    ("partition_heal_1000_cpu_again", ["sim", "partition-heal", "--seed", "0"], (SIM_DIGEST_1000,), False),
+)  # fmt: skip
+SERVE_WORKERS = 2
+SERVE_DEADLINE_S = 120
+
+
+@contextlib.contextmanager
+def sim_probe():
+    """What the simulated meshes of one run did: every ``SimNet``'s virtual
+    seconds and events (its teardown's included), the header of every
+    block its shared miner sealed (``mine_on``; an adversary's fixture
+    chain, ``make_blocks``, is hashlib's and not counted) and the seconds
+    the miner spent sealing them (``MineStats.elapsed_s``)."""
+    from p1_tpu_torch.node.netsim import SimNet
+
+    probe = {"virtual_s": 0.0, "events": 0, "sealed": [], "seal_s": 0.0}
+    run, mine_on = SimNet.run, SimNet.mine_on
+
+    def counted_run(self, coro, debug=False):
+        try:
+            return run(self, coro, debug)
+        finally:
+            probe["virtual_s"] += self.clock.now
+            probe["events"] += self.net.events
+
+    async def counted_mine_on(self, node, spacing_s=0.0):
+        block = await mine_on(self, node, spacing_s)
+        probe["sealed"].append(block.header)
+        probe["seal_s"] += self._miner.last_stats.elapsed_s
+        return block
+
+    SimNet.run, SimNet.mine_on = counted_run, counted_mine_on
+    try:
+        yield probe
+    finally:
+        SimNet.run, SimNet.mine_on = run, mine_on
+
+
+def phase_planes(search, msm, chain, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 15: ``sim`` and ``chaos`` through ``cli.main`` on the card and
+    on the host, each run's trace digests held to the JAX package's, every
+    header the card sealed held to the plain version (the earliest hit of
+    ``[0, nonce]``), then ``serve --workers 2`` over phase 10's chain
+    answering a headers and a proof query through the port's client.
+    Each run's launches are counted from 0 around it.  Returns the phase's
+    line and its launches.  ``device="cpu"`` rehearses the phase on a host
+    without a card (the card's runs on the host, nothing launched)."""
+    import asyncio
+    import logging
+
+    from p1_tpu_torch import cli
+    from p1_tpu_torch.chain import save_chain, verify_tx_proof
+    from p1_tpu_torch.core import keys
+    from p1_tpu_torch.core.hashutil import sha256d
+    from p1_tpu_torch.core.header import meets_target
+    from p1_tpu_torch.node.client import get_headers, get_proof
+
+    runs = {}
+    launches = {"sha256d_search": 0, "ed25519_msm": 0}
+    checked = 0
+    root = logging.getLogger()
+    if not root.handlers:  # else cli.main's basicConfig would set INFO
+        logging.basicConfig(stream=sys.stderr, format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    level = root.level
+    root.setLevel(logging.WARNING)  # a 1,000-node mesh logs every tip at INFO
+    try:
+        for label, argv, digests, on_card in SIM_RUNS:
+            keys.set_sig_backend(None)  # the default rung: the card's
+            run_device = device if on_card else "cpu"
+            argv = [*argv, "--device", run_device]
+            out = io.StringIO()
+            search.launches = msm.launches = 0
+            t0 = time.perf_counter()
+            with sim_probe() as probe, contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            wall_s = time.perf_counter() - t0
+            run_launches = {"sha256d_search": search.launches, "ed25519_msm": msm.launches}
+            report = json.loads(out.getvalue().strip().splitlines()[-1])
+            got = tuple(report.get("trace_digests") or [report["trace_digest"]])
+            if rc != 0 or not report["ok"] or got != digests:
+                raise AssertionError(f"{label}: exit {rc}, ok {report['ok']}, digests {got} != {digests}")
+            if run_device == "cuda" and run_launches["sha256d_search"] <= 0:
+                raise AssertionError(f"{label}: the mesh sealed no block through the search kernel")
+            if run_device == "cpu" and any(run_launches.values()):
+                raise AssertionError(f"{label}: a --device cpu mesh launched {run_launches}")
+            for header in probe["sealed"] if on_card else ():
+                raw = header.serialize()
+                earliest = plain_first_hit(arrays_for(header.mining_prefix(), header.difficulty, device), 0,
+                                           header.nonce + 1)  # fmt: skip
+                if earliest != header.nonce or not meets_target(sha256d(raw), header.difficulty):
+                    raise AssertionError(f"{label}: sealed nonce {header.nonce}, plain version's earliest {earliest}")
+                checked += 1
+            if on_card:
+                for name in launches:
+                    launches[name] += run_launches[name]
+            sealed = len(probe["sealed"])
+            runs[label] = {"wall_s": wall_s, "virtual_s": probe["virtual_s"], "events": probe["events"],
+                           "blocks_sealed": sealed, "seal_ms_per_block": 1e3 * probe["seal_s"] / max(sealed, 1),
+                           "launches": run_launches, "trace_digests": list(got), "ok": report["ok"]}  # fmt: skip
+            emit({"phase": "planes_run", "run": label, **runs[label]})
+    finally:
+        root.setLevel(level)
+        keys.set_sig_backend(None)
+
+    # -- serve --workers 2 over phase 10's chain ---------------------------
+    blocks = list(chain.main_chain())
+    tx = blocks[TAMPER_HEIGHT].txs[1]
+    tag = chain.genesis.block_hash()
+    with tempfile.TemporaryDirectory() as tmp, stopped_at_exit([]) as children:
+        store = pathlib.Path(tmp) / "served.chain"
+        save_chain(chain, store)
+        port = free_port_block(1)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "p1_tpu_torch", "serve", "--store", str(store), "--difficulty", "1",
+             "--port", str(port), "--workers", str(SERVE_WORKERS), "--deadline", str(SERVE_DEADLINE_S)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, cwd=ROOT,
+        )  # fmt: skip
+        children.append(proc)
+        ready = read_objects(proc, SERVE_WORKERS)
+        ready_s = time.perf_counter() - t0
+        if {r["config"] for r in ready} != {"serve"} or {r["port"] for r in ready} != {port}:
+            raise AssertionError(f"serve ready lines: {ready}")
+        if len({r["pid"] for r in ready}) != SERVE_WORKERS or {r["height"] for r in ready} != {chain.height}:
+            raise AssertionError(f"serve workers: {ready}")
+
+        async def query():
+            t1 = time.perf_counter()
+            headers = await get_headers("127.0.0.1", port, 1)
+            t2 = time.perf_counter()
+            proof = await get_proof("127.0.0.1", port, tx.txid(), 1)
+            return headers, proof, t2 - t1, time.perf_counter() - t2
+
+        headers, proof, headers_s, proof_s = asyncio.run(query())
+        if [h.block_hash() for h in headers] != [b.block_hash() for b in blocks]:
+            raise AssertionError("served headers differ from the chain's")
+        if proof is None:
+            raise AssertionError(f"no proof served for {tx.txid().hex()}")
+        verify_tx_proof(proof, 1, tag, txid=tx.txid())  # raises SPVError unless it checks out
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=CHILD_TIMEOUT_S)
+        drains = json_objects(out)
+        if proc.returncode != 0 or [d["config"] for d in drains] != ["drain"] * SERVE_WORKERS:
+            raise AssertionError(f"serve exit {proc.returncode}, drain lines {drains}")
+    serve = {"workers": SERVE_WORKERS, "ready_s": ready_s, "headers": len(headers), "headers_s": headers_s,
+             "proof_height": TAMPER_HEIGHT, "proof_s": proof_s, "exit": proc.returncode}  # fmt: skip
+    card = [r["wall_s"] for k, r in runs.items() if k.startswith("partition_heal_1000") and "cpu" not in k]
+    host = [r["wall_s"] for k, r in runs.items() if k.startswith("partition_heal_1000_cpu")]
+    line = {"runs": runs, "sealed_checked": checked, "serve": serve,
+            "wall_1000_card_over_host": sum(card) / sum(host) if card and host else None}  # fmt: skip
+    emit({"phase": "planes", **line})
+    return line, launches
 
 
 def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
@@ -2150,6 +2363,11 @@ def main() -> int:
     max_err = max(max_err, mesh_launches["sha256d_search_err"])
     ed25519["revalidate"] = {k: revalidate[k] for k in ("blocks", "signatures", "untrusted_s", "blocks_per_s", "us_per_sig")}
 
+    # -- 15. the simulation, serving and fault planes ------------------------
+    _, plane_launches = phase_planes(kernel, cuda_ed25519.ed25519_msm, built_store)
+    ed25519["launches_planes"] = plane_launches["ed25519_msm"]
+    ed25519["launches"] += plane_launches["ed25519_msm"]
+
     # -- every process this run started has ended --------------------------
     stop_resource_tracker()
     if left := stop_children():
@@ -2160,7 +2378,8 @@ def main() -> int:
             "name": "sha256d_search", "route": "cuda",
             "source": "p1_tpu_torch/hashx/csrc/sha256d_search.cu",
             "replaces": "p1_tpu/hashx/pallas_backend.py:67",
-            "launches": launches + search_node + search_net + mesh_launches["sha256d_search"], "max_abs_err": max_err,
+            "launches": launches + search_node + search_net + mesh_launches["sha256d_search"]
+            + plane_launches["sha256d_search"], "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "library_ms": None,
             "bound_ms_white_paper": bound_wp_ms, "bound_ms_measured_rate": bound_measured_ms,
@@ -2169,6 +2388,7 @@ def main() -> int:
             "launches_native_replay": native_launches["sha256d_search"],
             "launches_multichip": mesh_launches["sha256d_search_mine"],
             "launches_pod": mesh_launches["sha256d_search_pod"],
+            "launches_planes": plane_launches["sha256d_search"],
         },
         roof,
         verify,

@@ -29,14 +29,17 @@ state and its stores, and the integer-ALU roofline:
   (``ChainStore``, ``SegmentedStore``, the header plane), whose untrusted
   loads revalidate signature windows on the card; the offline store
   tools (``tooling``) and disk-fault stores (``testing``).
-- ``p1_tpu_torch.node``   — ``testing.make_blocks`` (the node itself comes
-  with a later slice).
+- ``p1_tpu_torch.node``   — the p2p node, its clients and ``net``; the
+  network simulator (``netsim``: full nodes in virtual time, sealing on the
+  card), its scenarios, the far field and the chaos plane; the read-only
+  query plane (``queryplane``) and replica provisioning (``provision``).
 - ``p1_tpu_torch.benchmarks`` — the integer-ALU roofline
   (``benchmarks/csrc/int_roofline.cu``), ``verify_chain``'s device time,
   the signature-verification bench (``sig_verify``, store revalidation
   included) and the signed test chains it loads (``host_ingest``).
 - ``p1_tpu_torch.cli``    — ``python -m p1_tpu_torch
-  mine|sweep|replay|keygen|balances|compact|fsck|snapshot``.
+  mine|sweep|replay|keygen|balances|compact|fsck|snapshot``, the node
+  and client commands, ``pod``, and ``sim|chaos|serve``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``); without a card they raise.

@@ -52,6 +52,7 @@ import fcntl
 import json
 import os
 import struct
+import threading
 import zlib
 from pathlib import Path
 
@@ -271,7 +272,13 @@ class SegmentedStore(ChainStore):
         ).encode("utf-8")
         body = _LEN.pack(len(payload)) + payload
         blob = SEG_MAGIC + body + _CRC.pack(zlib.crc32(body))
-        tmp = self.path.with_name(f"{self.path.name}.mf.{os.getpid()}")
+        # The temporary name is the writer's process AND thread: two
+        # threads of one process (a node's loop and a sidecar spill)
+        # rewriting the manifest at once must not share one tmp file,
+        # or one rename moves the other's half-written bytes.
+        tmp = self.path.with_name(
+            f"{self.path.name}.mf.{os.getpid()}.{threading.get_ident()}"
+        )
         with open(tmp, "wb") as f:
             f.write(blob)
             f.flush()

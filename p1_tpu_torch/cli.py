@@ -43,6 +43,19 @@ default) and sends the signature batches of deep sync, mempool pages
 and ``--revalidate-store`` to ``ed25519_msm.cu``; ``--device cpu`` runs
 both kernels' plain versions.  Without a card and without ``--device
 cpu`` the node refuses to start.
+
+The simulation, serving and fault planes: ``sim`` runs a scenario of
+full nodes in virtual time and ``chaos`` seeded fault schedules over
+such a mesh, each printing the reference's one-line JSON with its trace
+digest.  A mesh seals its blocks through the search kernel on the card;
+``--device cpu`` seals them with hashlib (the same blocks, the same
+digest), and without a card and without ``--device cpu`` both exit 2.
+``serve`` runs read-only replica workers over a chain store (host code):
+
+  python -m p1_tpu_torch sim partition-heal --seed 0                 # 1,000 nodes, on the card
+  python -m p1_tpu_torch sim fee-spam --seed 0 --device cpu
+  python -m p1_tpu_torch chaos --seed 0 --schedules 2 --device cpu
+  python -m p1_tpu_torch serve --store chain.p1 --difficulty 12 --port 9555 --workers 2
 """
 
 from __future__ import annotations
@@ -798,6 +811,187 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _add_retarget(p)
     _add_sig_device(p)
+
+    p = sub.add_parser(
+        "serve",
+        help="read-only replica worker(s): serve headers/filters/proof "
+        "queries from a chain store over mmap, WITHOUT the writer lock "
+        "— attach any number to a live node's store and scale query "
+        "QPS with cores while the node only mines and validates",
+    )
+    p.add_argument("--store", required=True, help="chain persistence path")
+    p.add_argument("--difficulty", type=int, default=16, help="chain selector")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument(
+        "--port",
+        type=int,
+        default=9555,
+        help="listen port (0 = ephemeral; --workers > 1 needs a real "
+        "port, shared via SO_REUSEPORT)",
+    )
+    p.add_argument(
+        "--workers",
+        type=int,
+        default=1,
+        help="replica processes to run against this store on this port "
+        "(SO_REUSEPORT fan-out; each worker holds its own mmap and "
+        "caches)",
+    )
+    p.add_argument(
+        "--refresh-interval",
+        type=float,
+        default=0.25,
+        help="seconds between tail rescans for blocks the node appended",
+    )
+    p.add_argument(
+        "--bootstrap",
+        action="append",
+        default=[],
+        metavar="HOST:PORT",
+        help="cold-start the store from this full node before serving: "
+        "PoW-verified header skeleton, chunk-verified snapshot, adopted "
+        "filter headers, then bodies above the base — seconds, not an "
+        "IBD; repeatable (extra peers are failovers and the cross-check "
+        "source); the worker then keeps pulling new blocks from the "
+        "bootstrap peers while it serves",
+    )
+    p.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        help="exit after this many seconds (tests/harnesses); default: "
+        "serve until interrupted",
+    )
+    _add_retarget(p)
+
+
+    p = sub.add_parser(
+        "sim",
+        help="deterministic network-simulator scenarios (1000-node "
+        "meshes in virtual time, one JSON report line)",
+    )
+    p.add_argument(
+        "scenario",
+        nargs="?",
+        default="partition-heal",
+        help="scenario name (see --list); default partition-heal",
+    )
+    p.add_argument(
+        "--list", action="store_true", help="list scenarios and exit"
+    )
+    p.add_argument(
+        "--seed",
+        type=int,
+        default=0,
+        help="determinism seed: same seed => byte-identical event trace "
+        "(the report's trace_digest)",
+    )
+    p.add_argument(
+        "--nodes",
+        type=int,
+        default=None,
+        help="mesh size (scenarios with a fixed shape ignore it)",
+    )
+    p.add_argument("--difficulty", type=int, default=8)
+    p.add_argument(
+        "--joiners", type=int, default=None, help="flash-crowd joiner count"
+    )
+    p.add_argument(
+        "--cycles", type=int, default=None, help="churn stop/restart waves"
+    )
+    p.add_argument(
+        "--attackers", type=int, default=None, help="eclipse attacker hosts"
+    )
+    p.add_argument(
+        "--region-nodes", type=int, default=None, help="wan nodes per region"
+    )
+    p.add_argument(
+        "--shards",
+        type=int,
+        default=None,
+        help="far-field shard count (>1 = one OS process per shard over "
+        "the pipe seam; the merged trace digest must not move with it)",
+    )
+    p.add_argument(
+        "--days",
+        type=float,
+        default=None,
+        help="soak scenario: virtual days to run (default 7)",
+    )
+    p.add_argument(
+        "--no-telemetry",
+        action="store_true",
+        help="run the scenario's nodes with telemetry recording off — "
+        "the trace digest must match the telemetry-on run (the "
+        "observer contract; tests compare exactly this)",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        choices=["cuda", "cpu"],
+        help="where the mesh's device work runs: cuda (default; every "
+        "block sealed by the sha256d_search kernel, signature batches on "
+        "the card; fails without a card) or cpu (hashlib sealing, the "
+        "plain PyTorch signature rung); the trace digest is the same",
+    )
+
+    p = sub.add_parser(
+        "chaos",
+        help="combined-fault search over the simulated mesh: seeded "
+        "crash/disk/partition/adversary schedules, invariant checks, "
+        "self-shrinking repros",
+    )
+    p.add_argument(
+        "--seed",
+        type=int,
+        default=0,
+        help="first schedule seed (determinism: same seed => "
+        "byte-identical event trace)",
+    )
+    p.add_argument(
+        "--schedules",
+        type=int,
+        default=1,
+        help="how many consecutive seeds to sweep (default 1)",
+    )
+    p.add_argument("--nodes", type=int, default=6, help="mesh size per run")
+    p.add_argument(
+        "--events", type=int, default=12, help="fault events per schedule"
+    )
+    p.add_argument("--difficulty", type=int, default=8)
+    p.add_argument(
+        "--repro",
+        metavar="FILE",
+        help="replay a repro artifact instead of sweeping (exit 1 iff "
+        "the recorded violation reproduces)",
+    )
+    p.add_argument(
+        "--out",
+        metavar="FILE",
+        default="chaos_repro.json",
+        help="where a violation's shrunk repro artifact is written "
+        "(default chaos_repro.json)",
+    )
+    p.add_argument(
+        "--no-shrink",
+        action="store_true",
+        help="on violation, write the full schedule without minimizing",
+    )
+    p.add_argument(
+        "--inject-bug",
+        choices=["relapse-disk", "deaf-recover"],
+        help="TEST ONLY: seed a known recovery bug so the shrink/repro "
+        "pipeline can be exercised against a guaranteed violation",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        choices=["cuda", "cpu"],
+        help="where the mesh's device work runs: cuda (default; every "
+        "block sealed by the sha256d_search kernel, signature batches on "
+        "the card; fails without a card) or cpu (hashlib sealing, the "
+        "plain PyTorch signature rung); the trace digest is the same",
+    )
     return parser
 
 
@@ -1796,6 +1990,336 @@ def cmd_snapshot(args) -> int:
     )
 
 
+# -- the simulation, serving and fault planes -------------------------
+
+
+def _sim_device_ready(args) -> bool:
+    """``sim`` / ``chaos`` on the card need one: without it they say so
+    and exit non-zero instead of carrying on on the host."""
+    if args.device != "cuda":
+        return True
+    import torch
+
+    if torch.cuda.is_available():
+        return True
+    print(
+        f"{args.cmd} runs on the card (--device cuda) and no CUDA device is "
+        "available; pass --device cpu to seal with hashlib and run the "
+        "plain signature rung",
+        file=sys.stderr,
+    )
+    return False
+
+
+def cmd_serve(args) -> int:
+    """Read-only replica worker(s) over a chain store (`p1 serve`).
+
+    Each worker mmaps the store WITHOUT the writer flock (a live node
+    keeps appending underneath; the worker's refresh loop follows the
+    tail) and answers headers/filters/proof/blocks/status queries behind
+    governor admission — node/queryplane.py.  ``--workers N`` forks N
+    processes sharing one port via SO_REUSEPORT, so query throughput
+    scales with cores.  Prints one JSON line per worker with the bound
+    port once serving."""
+    import os
+    import signal
+
+    from p1_tpu_torch.node.queryplane import serve_replica
+
+    retarget = _retarget_rule(args)
+    if args.workers > 1 and args.port == 0:
+        print("--workers > 1 needs an explicit --port", file=sys.stderr)
+        return 2
+    if args.workers < 1:
+        print("--workers must be >= 1", file=sys.stderr)
+        return 2
+
+    def _addr(spec: str) -> tuple[str, int]:
+        host, _, port = spec.rpartition(":")
+        return (host or "127.0.0.1", int(port))
+
+    upstreams = [_addr(s) for s in args.bootstrap]
+    if upstreams:
+        # Cold start BEFORE any worker serves (and before SO_REUSEPORT
+        # forks — exactly one process writes the store): PoW-verified
+        # skeleton, chunk-verified snapshot pinned to it, adopted filter
+        # headers, bodies above the base.  node/provision.py.
+        from p1_tpu_torch.node.provision import BootstrapError, bootstrap_store
+
+        try:
+            report = asyncio.run(
+                bootstrap_store(
+                    args.store,
+                    upstreams,
+                    args.difficulty,
+                    retarget=retarget,
+                    progress=lambda m: print(f"bootstrap: {m}", file=sys.stderr),
+                )
+            )
+        except (BootstrapError, ConnectionError, OSError, ValueError) as e:
+            print(f"serve failed: bootstrap: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"config": "bootstrap", **report}), flush=True)
+
+    def _worker(primary: bool = True) -> int:
+        async def _run() -> int:
+            try:
+                srv = await serve_replica(
+                    args.store,
+                    args.difficulty,
+                    retarget=retarget,
+                    host=args.host,
+                    port=args.port,
+                    refresh_interval_s=args.refresh_interval,
+                    reuse_port=args.workers > 1,
+                )
+            except (OSError, ValueError) as e:
+                print(f"serve failed: {e}", file=sys.stderr)
+                return 1
+            sync = None
+            if upstreams and primary:
+                # Only the primary worker writes the store; siblings see
+                # the appends through their own refresh loops.
+                from p1_tpu_torch.chain.store import ChainStore
+                from p1_tpu_torch.node.provision import UpstreamSync
+
+                sync_store = ChainStore(args.store, fsync=False)
+                sync = UpstreamSync(
+                    sync_store,
+                    srv.view,
+                    upstreams,
+                    args.difficulty,
+                    retarget=retarget,
+                    poll_interval_s=max(args.refresh_interval, 0.25),
+                )
+                sync.start()
+            print(
+                json.dumps(
+                    {
+                        "config": "serve",
+                        "port": srv.port,
+                        "height": srv.view.tip_height,
+                        "records": srv.view.records,
+                        "assumed_base": srv.view.assumed_base,
+                        "pid": os.getpid(),
+                    }
+                ),
+                flush=True,
+            )
+            # Graceful drain on SIGTERM: stop accepting, push every live
+            # session a final cursor marker, then exit 0 — a wallet sees
+            # an ordinary gap event and fails over mid-stream, not a
+            # dead socket it must time out on.
+            term = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            try:
+                loop.add_signal_handler(signal.SIGTERM, term.set)
+            except (NotImplementedError, RuntimeError):
+                pass  # non-unix / nested loop: deadline still works
+            try:
+                if args.deadline is not None:
+                    await asyncio.wait_for(term.wait(), args.deadline)
+                else:
+                    await term.wait()
+            except (asyncio.TimeoutError, TimeoutError):
+                pass
+            except asyncio.CancelledError:
+                pass
+            finally:
+                if sync is not None:
+                    await sync.stop()
+                    sync_store.close()
+                drained = await srv.drain()
+                print(
+                    json.dumps(
+                        {"config": "drain", "sessions": drained,
+                         "pid": os.getpid()}
+                    ),
+                    flush=True,
+                )
+            return 0
+
+        try:
+            return asyncio.run(_run())
+        except KeyboardInterrupt:
+            return 0
+
+    procs = []
+    if args.workers > 1:
+        import multiprocessing
+
+        for _ in range(args.workers - 1):
+            proc = multiprocessing.Process(
+                target=_worker, args=(False,), daemon=True
+            )
+            proc.start()
+            procs.append(proc)
+    try:
+        return _worker()
+    finally:
+        for proc in procs:
+            proc.terminate()
+            proc.join(timeout=5)
+
+
+def cmd_sim(args) -> int:
+    """Run one simulator scenario (node/scenarios.py) and print its
+    report as a single JSON line — exit 0 iff the scenario's invariant
+    held.  Pure virtual time: the 1000-node default runs in tier-1
+    minutes of wall clock on one host."""
+    import inspect
+
+    from p1_tpu_torch.node.scenarios import SCENARIOS, run_scenario
+
+    if args.list:
+        for name, fn in sorted(SCENARIOS.items()):
+            doc = (inspect.getdoc(fn) or "").split(".")[0].replace("\n", " ")
+            print(f"{name}: {doc}")
+        return 0
+    if args.scenario not in SCENARIOS:
+        raise SystemExit(
+            f"unknown scenario {args.scenario!r}; "
+            f"have: {', '.join(sorted(SCENARIOS))} (p1 sim --list)"
+        )
+    accepted = inspect.signature(SCENARIOS[args.scenario]).parameters
+    flag_map = {
+        "nodes": args.nodes,
+        "joiners": args.joiners,
+        "cycles": args.cycles,
+        "attackers": args.attackers,
+        "region_nodes": args.region_nodes,
+        "shards": args.shards,
+        "days": args.days,
+        # Only passed when disabling: scenarios default telemetry on.
+        "telemetry": False if args.no_telemetry else None,
+    }
+    kwargs = {
+        k: v for k, v in flag_map.items() if v is not None and k in accepted
+    }
+    if not _sim_device_ready(args):
+        return 2
+    report = run_scenario(
+        args.scenario,
+        seed=args.seed,
+        difficulty=args.difficulty,
+        device=args.device,
+        **kwargs,
+    )
+    print(json.dumps(report))
+    return 0 if report.get("ok") else 1
+
+
+def cmd_chaos(args) -> int:
+    """Chaos sweep / repro replay (node/chaos.py).  Exit-code contract:
+    0 = every schedule's invariants held, 1 = a violation was found and
+    its (shrunk) repro artifact written — or, under --repro, the
+    artifact's violation reproduced — 2 = usage error (argparse's own
+    exit, plus unreadable/foreign repro files)."""
+    from p1_tpu_torch.node import chaos
+
+    if not _sim_device_ready(args):
+        return 2
+    if args.repro:
+        try:
+            report, artifact = chaos.run_repro(args.repro, device=args.device)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 2
+        hit = sorted({v["invariant"] for v in report["violations"]})
+        print(
+            json.dumps(
+                {
+                    "repro": args.repro,
+                    "expected": artifact["expected_violations"],
+                    "observed": hit,
+                    "trace_digest": report["trace_digest"],
+                    "digest_match": report["trace_digest"]
+                    == artifact["expected_trace_digest"],
+                    "reproduced": bool(hit),
+                }
+            )
+        )
+        return 1 if hit else 0
+    digests = []
+    for seed in range(args.seed, args.seed + args.schedules):
+        events = chaos.generate_schedule(seed, args.nodes, args.events)
+        report = chaos.run_chaos(
+            seed,
+            nodes=args.nodes,
+            events=events,
+            difficulty=args.difficulty,
+            inject_bug=args.inject_bug,
+            device=args.device,
+        )
+        digests.append(report["trace_digest"])
+        if report["ok"]:
+            continue
+        target = report["violations"][0]["invariant"]
+        shrunk, runs = events, 0
+        if not args.no_shrink:
+
+            def reproduces(subset):
+                rep = chaos.run_chaos(
+                    seed,
+                    nodes=args.nodes,
+                    events=subset,
+                    difficulty=args.difficulty,
+                    inject_bug=args.inject_bug,
+                    device=args.device,
+                )
+                return any(
+                    v["invariant"] == target for v in rep["violations"]
+                )
+
+            shrunk, runs = chaos.shrink_schedule(events, reproduces)
+        final = chaos.run_chaos(
+            seed,
+            nodes=args.nodes,
+            events=shrunk,
+            difficulty=args.difficulty,
+            inject_bug=args.inject_bug,
+            device=args.device,
+        )
+        chaos.write_repro(
+            args.out,
+            final,
+            shrunk,
+            seed=seed,
+            nodes=args.nodes,
+            difficulty=args.difficulty,
+            inject_bug=args.inject_bug,
+        )
+        print(
+            json.dumps(
+                {
+                    "ok": False,
+                    "seed": seed,
+                    "violations": final["violations"],
+                    "schedule_events": len(events),
+                    "shrunk_events": len(shrunk),
+                    "shrink_runs": runs,
+                    "repro": args.out,
+                    "trace_digest": final["trace_digest"],
+                }
+            )
+        )
+        return 1
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "schedules": args.schedules,
+                "seed_first": args.seed,
+                "nodes": args.nodes,
+                "events_per_schedule": args.events,
+                "trace_digests": digests,
+            }
+        )
+    )
+    return 0
+
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -1824,6 +2348,9 @@ def main(argv=None) -> int:
         "compact": cmd_compact,
         "fsck": cmd_fsck,
         "snapshot": cmd_snapshot,
+        "serve": cmd_serve,
+        "sim": cmd_sim,
+        "chaos": cmd_chaos,
     }[args.cmd]
     return handler(args)
 

@@ -1,11 +1,14 @@
-"""``chip_smoke.py``'s process hygiene, on the CPU.
+"""``chip_smoke.py``'s process hygiene and phase 15, on the CPU.
 
 The smoke must stop every process it starts.  It adopts its children's
 orphans, stops the resource tracker that ``multiprocessing``'s spawn
 pools start, and kills and reaps whatever child is left.  Each case runs
 in a fresh interpreter, because becoming a subreaper lasts for the life
 of the process.  Without a card the smoke itself exits 2 and starts
-nothing.
+nothing.  Phase 15's pinned trace digests are what the JAX package
+computes now (the 1,000-node pin is ``slow``, as the reference's own
+1,000-node run is), and the phase runs end to end on the host
+(``device="cpu"``) at its 200-node size.
 """
 
 import json
@@ -72,3 +75,69 @@ def test_without_a_card_it_exits_2_and_prints_no_result():
     assert proc.returncode == 2, proc.stderr[-2000:]
     assert "no CUDA device" in proc.stderr
     assert proc.stdout == ""
+
+
+# -- phase 15's pins and a rehearsal of the phase -----------------------------
+
+import importlib.util  # noqa: E402
+
+import pytest  # noqa: E402
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules.setdefault("chip_smoke", module)  # its dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_pinned_digests_are_the_reference_200_node_and_fee_spam():
+    """The digests phase 15 holds the card's meshes to are what the JAX
+    package computes now."""
+    from p1_tpu.node.scenarios import fee_spam, partition_heal
+
+    cs = _smoke()
+    assert partition_heal(nodes=200, seed=0)["trace_digest"] == cs.SIM_DIGEST_200
+    assert fee_spam(seed=0)["trace_digest"] == cs.SIM_DIGEST_FEE_SPAM
+
+
+def test_pinned_digests_are_the_reference_chaos():
+    from p1_tpu.node.chaos import generate_schedule, run_chaos
+
+    cs = _smoke()
+    got = tuple(run_chaos(seed, events=generate_schedule(seed, 6, 12))["trace_digest"] for seed in (0, 1))
+    assert got == cs.CHAOS_DIGESTS
+
+
+@pytest.mark.slow
+def test_pinned_digest_is_the_reference_1000_node():
+    from p1_tpu.node.scenarios import partition_heal
+
+    assert partition_heal(seed=0)["trace_digest"] == _smoke().SIM_DIGEST_1000
+
+
+def test_phase_planes_rehearsed_on_the_host():
+    """Phase 15 on the CPU (``device="cpu"``): the 200-node pair, fee-spam
+    and chaos through ``cli.main`` held to the pins, every sealed header
+    to the plain version, and ``serve --workers 2`` over a small chain
+    answering headers and a proof, nothing launched and no process left."""
+    out = run("""
+        import json
+        import chip_smoke as cs
+        from p1_tpu_torch.benchmarks.host_ingest import build_blocks
+        from p1_tpu_torch.hashx import cuda_backend, cuda_ed25519
+
+        cs.adopt_orphans()
+        cs.SIM_RUNS = tuple(r for r in cs.SIM_RUNS if "1000" not in r[0])
+        cs.TAMPER_HEIGHT = 5
+        chain, _ = build_blocks(8, 2, difficulty=1)
+        line, launches = cs.phase_planes(cuda_backend.sha256d_search, cuda_ed25519.ed25519_msm, chain, device="cpu")
+        cs.stop_resource_tracker()
+        print(json.dumps({"runs": sorted(line["runs"]), "checked": line["sealed_checked"],
+                          "serve": line["serve"], "launches": launches, "left": cs.stop_children()}))
+    """)
+    assert out["runs"] == ["chaos_2", "fee_spam", "partition_heal_200", "partition_heal_200_cpu"]
+    assert out["checked"] > 0 and out["left"] == []
+    assert out["launches"] == {"sha256d_search": 0, "ed25519_msm": 0}
+    assert out["serve"]["headers"] == 9 and out["serve"]["exit"] == 0

@@ -18,10 +18,12 @@ cpu`` a node or net exits non-zero, and ``--verify-workers`` is reported.
 sharded`` and its batch guard, and ``pod``'s parser and its exits
 (tests/test_torch_pod.py drives whole pods).
 
-Waiting for the simulation, serving and fault planes (ROADMAP Queue A
-item 7c): ``TestWatchCLI.test_watch_deadline_is_a_clean_exit`` (it runs
-``serve``), and the ``serve``, ``sim``, ``chaos`` and ``lint`` cases.
-The offline store commands are in tests/test_torch_tooling.py.
+``TestSim`` and ``TestChaos`` run the simulation and fault planes'
+commands with ``--device cpu``, and
+``TestWatchCLI.test_watch_deadline_is_a_clean_exit`` watches a ``serve``
+replica; ``TestServe`` is in tests/test_torch_tooling.py with the other
+store commands.  The ``lint`` cases wait for the port's ``lint`` (ROADMAP
+Queue A).
 """
 
 import json
@@ -638,6 +640,188 @@ class TestRetargetWalletE2E:
                 node.kill()
 
 
+class TestSim:
+    """`p1 sim`: the deterministic network-simulator
+    scenarios — list/help smoke plus one subprocess e2e proving the
+    JSON report line, the ok exit-code contract, and that the report's
+    trace digest is reproducible by seed across PROCESSES (which the
+    in-process determinism tests cannot see: it additionally requires
+    nothing hash-seed-dependent in the event path)."""
+
+    def test_list_smoke(self):
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "sim", "--list"],
+            capture_output=True,
+            text=True,
+            timeout=110,
+            cwd=REPO,
+        )
+        assert proc.returncode == 0
+        for name in ("partition-heal", "flash-crowd", "eclipse", "wan"):
+            assert name in proc.stdout
+
+    def test_unknown_scenario_is_a_clean_cli_error(self):
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "sim", "bogus"],
+            capture_output=True,
+            text=True,
+            timeout=110,
+            cwd=REPO,
+        )
+        assert proc.returncode != 0
+        assert "unknown scenario" in proc.stderr
+
+    def test_sim_e2e_report_and_cross_process_determinism(self):
+        def one_run():
+            proc = subprocess.run(
+                [
+                    sys.executable,
+                    "-m",
+                    "p1_tpu_torch",
+                    "sim",
+                    "partition-heal",
+                    "--nodes",
+                    "16",
+                    "--seed",
+                    "9",
+                    "--device",
+                    "cpu",
+                ],
+                capture_output=True,
+                text=True,
+                timeout=110,
+                cwd=REPO,
+                env={**os.environ, "PYTHONHASHSEED": "0"},
+            )
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        a, b = one_run(), one_run()
+        assert a["ok"] and a["converged"] and a["ledger_conserved"]
+        assert a["nodes"] == 16
+        assert a["trace_digest"] == b["trace_digest"]
+
+    @staticmethod
+    def _sim(*argv, timeout=180):
+        return subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "sim", *argv, "--device", "cpu"],
+            capture_output=True,
+            text=True,
+            timeout=timeout,
+            cwd=REPO,
+            env={**os.environ, "PYTHONHASHSEED": "0"},
+        )
+
+    def test_report_repro_stamp_round_trips(self):
+        """Every report names its one-flag repro
+        (`p1 sim <name> --seed N`) and re-running exactly that command
+        reproduces the trace digest byte-for-byte, across processes."""
+        first = self._sim("retarget-shock", "--nodes", "5", "--seed", "7")
+        assert first.returncode == 0, first.stderr[-2000:]
+        a = json.loads(first.stdout.strip().splitlines()[-1])
+        assert a["seed"] == 7
+        assert a["repro"] == "p1 sim retarget-shock --seed 7"
+        again = self._sim("retarget-shock", "--nodes", "5", "--seed", "7")
+        b = json.loads(again.stdout.strip().splitlines()[-1])
+        assert b["trace_digest"] == a["trace_digest"]
+
+    def test_far_field_shard_split_is_digest_stable_cross_process(self):
+        """The far-field merged trace digest does
+        not move across the 1→N shard split, with the N shards as REAL
+        OS processes over the pipe seam, PYTHONHASHSEED pinned."""
+        one = self._sim(
+            "far-field", "--nodes", "400", "--seed", "4", "--shards", "1"
+        )
+        assert one.returncode == 0, one.stderr[-2000:]
+        a = json.loads(one.stdout.strip().splitlines()[-1])
+        sharded = self._sim(
+            "far-field", "--nodes", "400", "--seed", "4", "--shards", "2"
+        )
+        assert sharded.returncode == 0, sharded.stderr[-2000:]
+        b = json.loads(sharded.stdout.strip().splitlines()[-1])
+        assert a["ok"] and b["ok"]
+        assert b["shard_processes"] and not a["shard_processes"]
+        assert a["trace_digest"] == b["trace_digest"]
+        assert a["far_trace_digest"] == b["far_trace_digest"]
+
+
+class TestChaos:
+    """`p1 chaos`: combined-fault schedules over the
+    simulated mesh.  Exit-code contract: 0 = all invariants held,
+    1 = violation with a (shrunk) repro written — or a --repro replay
+    that reproduces — 2 = usage / unreadable artifact.  Plus the
+    cross-process determinism half of the acceptance criterion."""
+
+    @staticmethod
+    def _chaos(*argv, timeout=240):
+        return subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "chaos", *argv, "--device", "cpu"],
+            capture_output=True,
+            text=True,
+            timeout=timeout,
+            cwd=REPO,
+            env={**os.environ, "PYTHONHASHSEED": "0"},
+        )
+
+    def test_help_smoke(self):
+        proc = self._chaos("--help")
+        assert proc.returncode == 0
+        for flag in ("--schedules", "--repro", "--seed", "--events"):
+            assert flag in proc.stdout
+
+    def test_clean_sweep_exit_0_and_cross_process_determinism(self):
+        # A seed whose schedule includes a crash/recover cycle, so the
+        # digest equality below covers the reboot path too.
+        from p1_tpu_torch.node.chaos import generate_schedule
+
+        seed = next(
+            s
+            for s in range(20)
+            if any(
+                e["op"] == "crash" for e in generate_schedule(s, 5, 10)
+            )
+        )
+
+        def one_run():
+            proc = self._chaos(
+                "--seed", str(seed), "--schedules", "1", "--nodes", "5",
+                "--events", "10",
+            )
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        a, b = one_run(), one_run()
+        assert a["ok"] and a["trace_digests"] == b["trace_digests"]
+
+    def test_violation_exit_1_writes_repro_that_replays_exit_1(
+        self, tmp_path
+    ):
+        out = tmp_path / "repro.json"
+        proc = self._chaos(
+            "--seed", "0", "--schedules", "3", "--nodes", "5",
+            "--events", "10", "--inject-bug", "relapse-disk",
+            "--out", str(out),
+        )
+        assert proc.returncode == 1, (proc.stdout, proc.stderr[-2000:])
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert summary["violations"] and out.exists()
+        # Shrinker acceptance: the minimized schedule is tiny.
+        assert summary["shrunk_events"] <= 5
+        replay = self._chaos("--repro", str(out))
+        assert replay.returncode == 1, replay.stderr[-2000:]
+        rep = json.loads(replay.stdout.strip().splitlines()[-1])
+        assert rep["reproduced"] and rep["digest_match"]
+
+    def test_unreadable_repro_exit_2(self, tmp_path):
+        junk = tmp_path / "junk.json"
+        junk.write_text("not a repro")
+        assert self._chaos("--repro", str(junk)).returncode == 2
+        assert (
+            self._chaos("--repro", str(tmp_path / "absent.json")).returncode
+            == 2
+        )
+
+
 class TestWatchCLI:
     """`p1 watch` — one JSON line per verified push event, deadline and
     max-events as clean exits (0), dead peers as exit 1."""
@@ -711,6 +895,49 @@ class TestWatchCLI:
                 node.kill()
             node_log.close()
 
+    def test_watch_deadline_is_a_clean_exit(self, tmp_path):
+        """Against a static replica nothing ever connects, so the watch
+        idles at its TOFU anchor until --deadline — exit 0, no output
+        (the `p1 serve` deadline contract)."""
+        from p1_tpu_torch.chain import ChainStore
+        from p1_tpu_torch.node.testing import make_blocks
+
+        store = tmp_path / "chain.dat"
+        s = ChainStore(store)
+        try:
+            for block in make_blocks(4, difficulty=12)[1:]:
+                s.append(block)
+        finally:
+            s.close()
+        srv = subprocess.Popen(
+            [
+                sys.executable, "-m", "p1_tpu_torch", "serve",
+                "--store", str(store), "--difficulty", "12",
+                "--port", "0", "--deadline", "60",
+            ],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL,
+            text=True,
+            cwd=REPO,
+        )
+        try:
+            ready = json.loads(srv.stdout.readline())
+            proc = subprocess.run(
+                [
+                    sys.executable, "-m", "p1_tpu_torch", "watch", "nobody",
+                    "--difficulty", "12", "--port", str(ready["port"]),
+                    "--deadline", "3",
+                ],
+                capture_output=True,
+                text=True,
+                timeout=110,
+                cwd=REPO,
+            )
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            assert proc.stdout.strip() == ""
+        finally:
+            srv.terminate()
+            srv.wait(timeout=30)
 
     def test_watch_dead_peer_exits_1(self):
         proc = subprocess.run(
@@ -890,8 +1117,9 @@ class TestMaintain:
 
 
 class TestDevice:
-    """The port's device contract on the command line: a node or net on
-    the card unless asked for the CPU, and the verify-workers knob."""
+    """The port's device contract on the command line: a node, a net, a
+    simulated mesh or a chaos run on the card unless asked for the CPU,
+    and the verify-workers knob."""
 
     @pytest.mark.parametrize(
         "argv",
@@ -899,8 +1127,11 @@ class TestDevice:
             ["node", "--difficulty", "12", "--port", "0", "--duration", "1"],
             ["node", "--backend", "cpu", "--difficulty", "12", "--port", "0", "--duration", "1"],
             ["net", "--nodes", "2", "--difficulty", "12", "--duration", "1", "--base-port", "33444"],
+            ["sim", "partition-heal", "--nodes", "16"],
+            ["chaos", "--schedules", "1"],
+            ["chaos", "--repro", "absent.json"],
         ],
-        ids=["cuda-backend", "cpu-backend", "net"],
+        ids=["cuda-backend", "cpu-backend", "net", "sim", "chaos", "chaos-repro"],
     )
     def test_without_a_card_and_without_device_cpu_exits_nonzero(self, argv):
         import torch

@@ -89,6 +89,12 @@ PORT_MODULES = (
     "p1_tpu_torch.parallel.pod",
     "p1_tpu_torch.parallel.watchdog",
     "p1_tpu_torch.graft_entry",
+    "p1_tpu_torch.node.netsim",
+    "p1_tpu_torch.node.farfield",
+    "p1_tpu_torch.node.scenarios",
+    "p1_tpu_torch.node.chaos",
+    "p1_tpu_torch.node.queryplane",
+    "p1_tpu_torch.node.provision",
 )
 
 
@@ -115,6 +121,29 @@ def test_every_module_imports_without_jax_or_p1_tpu():
         "    bad.append('native library loaded at import')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=PKG.parent,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_planes_load_no_torch():
+    """The simulation, serving and fault planes import torch only where
+    they run device work: a ``serve`` process, which forks its workers,
+    and a far-field shard, a spawned interpreter, load none of it, so
+    neither initialises CUDA nor pays torch's import."""
+    code = (
+        "import sys\n"
+        "import p1_tpu_torch.cli, p1_tpu_torch.node.queryplane, p1_tpu_torch.node.provision\n"
+        "import p1_tpu_torch.node.farfield, p1_tpu_torch.node.netsim\n"
+        "import p1_tpu_torch.node.scenarios, p1_tpu_torch.node.chaos\n"
+        "sys.exit(1 if 'torch' in sys.modules else 0)\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code],

@@ -1,7 +1,7 @@
 """The port's staged pipeline (``node/pipeline.py``) against the JAX package's.
 
-Mirrors the non-simulator cases of tests/test_pipeline.py (``TestLaneMechanics``,
-``TestSupervision``), run against ``p1_tpu_torch``.
+Mirrors tests/test_pipeline.py: the reference's cases, run against
+``p1_tpu_torch``.
 
 Staged pipeline: lanes, ordering, crashes.
 
@@ -22,18 +22,19 @@ Four planes of proof:
   digest is byte-identical with staging on and off, the same observer
   contract the telemetry determinism pair pins.
 
-Waiting for the simulation, serving and fault planes (ROADMAP Queue A
-item 7c): ``TestStagedNodeInSim`` and ``TestStagingDigestContract`` (they run ``SimNet``
-and the ``partition_heal`` scenario).
+``TestStagedNodeInSim`` and ``TestStagingDigestContract`` run the
+port's ``SimNet`` and ``partition_heal`` with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import random
 import threading
 
 import pytest
 
+from p1_tpu_torch.node.netsim import SimNet
 from p1_tpu_torch.node.pipeline import (
     LANE_STAGES,
     STAGES,
@@ -180,3 +181,99 @@ class TestSupervision:
         assert pipe._lanes["validate"].respawns == 1
 
 
+@pytest.mark.sim
+class TestStagedNodeInSim:
+    def test_lane_worker_death_mid_mesh_respawns_and_keeps_the_block(
+        self, tmp_path
+    ):
+        """The node-level crash contract: a validate and a store worker
+        death during block handling are respawned and counted
+        (NodeMetrics.worker_respawns, the task_crashes lineage), and
+        the block still connects AND persists."""
+        net = SimNet(
+            seed=3, difficulty=8, store_dir=tmp_path, pipeline_workers=1, device="cpu"
+        )
+
+        async def main():
+            node = await net.add_node("10.0.0.1")
+            pipe = node.pipeline
+            pipe.fail_next("validate")
+            await net.mine_on(node, spacing_s=1.0)
+            pipe.fail_next("store")
+            await net.mine_on(node, spacing_s=1.0)
+            assert node.chain.height == 2
+            status = node.status()["pipeline"]
+            assert status["worker_respawns"] == 2
+            assert status["validate_alive"] and status["store_alive"]
+            assert node.metrics.worker_respawns == 2
+            await net.stop_all()
+
+        net.run(main())
+        # Both blocks survived the worker deaths onto disk: a fresh
+        # resume sees the full chain.
+        from p1_tpu_torch.chain.segstore import open_store
+
+        store = open_store(tmp_path / "10.0.0.1.dat", fsync=False)
+        try:
+            assert store.load_chain(8, trusted=True).height == 2
+        finally:
+            store.close()
+
+    @staticmethod
+    def _connect_order(seed: int, workers: int) -> tuple:
+        """One randomized 3-miner interleaving against a victim node;
+        returns the victim's exact block CONNECT order."""
+        rng = random.Random(seed * 1000 + 17)
+        plan = [
+            (rng.randrange(3), rng.choice((0.0, 0.05, 0.2, 1.0)))
+            for _ in range(12)
+        ]
+        net = SimNet(seed=seed, difficulty=8, pipeline_workers=workers, device="cpu")
+        order: list[bytes] = []
+
+        async def main():
+            victim = await net.add_node("10.0.1.0")
+            miners = [
+                await net.add_node(f"10.0.1.{i + 1}", peers=["10.0.1.0"])
+                for i in range(3)
+            ]
+            assert await net.run_until(net.links_up, 30, wall_limit_s=60)
+            inner = victim.chain.add_block
+
+            def spy(block):
+                res = inner(block)
+                order.extend(b.block_hash() for b in res.connected)
+                return res
+
+            victim.chain.add_block = spy
+            for miner_idx, spacing in plan:
+                await net.mine_on(miners[miner_idx], spacing_s=spacing)
+            await net.run_until(lambda: False, 30, wall_limit_s=60)
+            await net.stop_all()
+
+        net.run(main())
+        assert order, "the interleaving never reached the victim"
+        return tuple(order)
+
+    @pytest.mark.parametrize("seed", [1, 2, 3])
+    def test_staged_connect_order_equals_serial_connect_order(self, seed):
+        """The ordering property the refactor must preserve: blocks
+        from one mesh connect on the victim in IDENTICAL order with
+        staging on (1 worker) and off — across randomized multi-peer
+        mining interleavings (concurrent forks, reorgs, relay echo)."""
+        assert self._connect_order(seed, 1) == self._connect_order(seed, 0)
+
+
+@pytest.mark.sim
+class TestStagingDigestContract:
+    """The acceptance pin: the 200-node partition/heal trace digest is
+    byte-identical with staging on (1 worker) and off — determinism by
+    construction (SimLoop.run_in_executor), proven at mesh scale."""
+
+    def test_200_node_digest_identical_staging_on_off(self):
+        from p1_tpu_torch.node.scenarios import partition_heal
+
+        staged = partition_heal(nodes=200, seed=7, pipeline_workers=1, device="cpu")
+        inline = partition_heal(nodes=200, seed=7, pipeline_workers=0, device="cpu")
+        assert staged["ok"] and inline["ok"]
+        assert staged["trace_digest"] == inline["trace_digest"]

@@ -1,8 +1,8 @@
 """The port's set-reconciliation relay (``node/reconcile.py``) against the JAX
 package's.
 
-Mirrors the non-simulator cases of tests/test_reconcile.py (``TestCodecProperties``,
-``TestReconcileFrames``), run against ``p1_tpu_torch``.
+Mirrors tests/test_reconcile.py: the reference's cases, run against
+``p1_tpu_torch``.
 
 Set-reconciliation relay: codec properties, RECONCILE
 wire frames, and the two-node exchange over the simulator.
@@ -16,8 +16,8 @@ encode/decode and their hostile-input rejections; the simulator tests
 prove a reconciliation round actually moves a transaction between two
 nodes with the flood path dark.
 
-Waiting for the simulation, serving and fault planes (ROADMAP Queue A
-item 7c): ``TestTwoNodeExchange`` (it runs ``SimNet``).
+``TestTwoNodeExchange`` runs two port nodes on the port's ``SimNet``
+with ``device="cpu"``.
 """
 
 import random
@@ -215,3 +215,86 @@ class TestReconcileFrames:
                 protocol.decode(payload)
 
 
+@pytest.mark.sim
+class TestTwoNodeExchange:
+    def test_round_moves_a_tx_without_flooding_it(self):
+        """Two reconciling nodes, flood spine off: a submitted tx must
+        reach the other node THROUGH a reconciliation round (REQRECON/
+        SKETCH/RECONCILDIFF then an explicit GETTX fetch), with the
+        recon byte families charged and txs_reconciled counting the one
+        serve."""
+        from p1_tpu_torch.core.genesis import genesis_hash
+        from p1_tpu_torch.core.keys import Keypair
+        from p1_tpu_torch.core.tx import Transaction
+        from p1_tpu_torch.node.netsim import SimNet
+
+        net = SimNet(seed=11, difficulty=8, device="cpu")
+
+        async def main():
+            a = await net.add_node(
+                recon_gossip=True,
+                recon_interval_s=0.2,
+                recon_flood_degree=0,
+                miner_id="pool",
+            )
+            b = await net.add_node(
+                peers=[net.host_name(0)],
+                recon_gossip=True,
+                recon_interval_s=0.2,
+                recon_flood_degree=0,
+            )
+            assert await net.run_until(net.links_up, 30, step=0.1)
+            w = Keypair.from_seed_text("p1-recon-pair")
+            a.miner_id = w.account
+            await net.mine_on(a, spacing_s=1.0)
+            assert await net.run_until(
+                lambda: b.chain.height == 1, 30, step=0.1
+            )
+            tx = Transaction.transfer(
+                w, "p1-payee", 1, 1, 0, chain=genesis_hash(8)
+            )
+            await a.submit_tx(tx)
+            assert await net.run_until(
+                lambda: tx.txid() in b.mempool, 30, step=0.1
+            ), "tx never crossed the reconciliation-only link"
+            assert a.metrics.recon_success + b.metrics.recon_success >= 1
+            assert a.metrics.txs_reconciled == 1  # served exactly once
+            relay = a.metrics.relay_bytes()
+            assert relay.get("recon", 0) > 0  # the exchange was charged
+            assert b.metrics.relay_bytes().get("recon", 0) > 0
+
+        net.run(main())
+
+    def test_flood_stays_the_dialect_when_recon_is_off(self):
+        """Negative control: identical pair with recon off moves the
+        same tx with ZERO recon rounds and zero recon bytes — the
+        pre-path is untouched."""
+        from p1_tpu_torch.core.genesis import genesis_hash
+        from p1_tpu_torch.core.keys import Keypair
+        from p1_tpu_torch.core.tx import Transaction
+        from p1_tpu_torch.node.netsim import SimNet
+
+        net = SimNet(seed=11, difficulty=8, device="cpu")
+
+        async def main():
+            a = await net.add_node(miner_id="pool")
+            b = await net.add_node(peers=[net.host_name(0)])
+            assert await net.run_until(net.links_up, 30, step=0.1)
+            w = Keypair.from_seed_text("p1-recon-pair")
+            a.miner_id = w.account
+            await net.mine_on(a, spacing_s=1.0)
+            assert await net.run_until(
+                lambda: b.chain.height == 1, 30, step=0.1
+            )
+            tx = Transaction.transfer(
+                w, "p1-payee", 1, 1, 0, chain=genesis_hash(8)
+            )
+            await a.submit_tx(tx)
+            assert await net.run_until(
+                lambda: tx.txid() in b.mempool, 30, step=0.1
+            )
+            for n in (a, b):
+                assert n.metrics.recon_rounds == 0
+                assert n.metrics.relay_bytes().get("recon", 0) == 0
+
+        net.run(main())

@@ -9,8 +9,8 @@ same chain, snapshot files and ``state_root`` are byte-identical, a file
 written by either loads in the other, and damaged files get the same
 verdicts.
 
-Waiting for the simulation plane (ROADMAP Queue A item 7c; every case
-runs ``SimNet``): test_snapshot.py's ``TestNodePlane``.
+``TestNodePlane`` is test_snapshot.py's: port nodes on the port's
+``SimNet`` with ``device="cpu"``.
 """
 
 import os
@@ -28,7 +28,8 @@ from p1_tpu_torch.chain import snapshot as snapmod
 from p1_tpu_torch.chain.chain import Chain
 from p1_tpu_torch.chain.snapshot import SnapshotError
 from p1_tpu_torch.core.tx import BLOCK_REWARD
-from p1_tpu_torch.node.testing import make_blocks
+from p1_tpu_torch.node.netsim import SimNet
+from p1_tpu_torch.node.testing import FaultPlan, HostilePeer, make_blocks
 
 DIFF = 8
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -364,3 +365,326 @@ class TestCrossPackage:
             del data[-20:]
         path.write_bytes(bytes(data))
         assert snapmod.verify_file(path) == ref_snapmod.verify_file(path)
+
+
+@pytest.mark.sim
+class TestNodePlane:
+    """End-to-end over the deterministic simulator: full nodes, real
+    protocol, virtual time."""
+
+    def test_honest_boot_assumed_serves_then_flips(self):
+        net = SimNet(seed=11, difficulty=DIFF, device="cpu")
+
+        async def main():
+            a = await net.add_node(snapshot_interval=4)
+            b = await net.add_node(
+                peers=[net.host_name(0)], snapshot_interval=4
+            )
+            assert await net.run_until(net.links_up, 30, wall_limit_s=30)
+            for _ in range(10):
+                await net.mine_on(a, spacing_s=0.5)
+            assert await net.run_until(
+                lambda: b.chain.height == 10, 30, wall_limit_s=30
+            )
+            j = await net.add_node(
+                peers=[net.host_name(0)],
+                snapshot_sync=True,
+                snapshot_interval=4,
+            )
+            assert await net.run_until(
+                lambda: j.validation_state == "assumed", 30, wall_limit_s=30
+            )
+            # Serving IMMEDIATELY from the assumed state: balances,
+            # headers, proofs — before any history was replayed.
+            assert j.chain.base_height == 8
+            assert j.chain.balance(a.miner_id) > 0
+            assert j.chain.header_of(j.chain.tip_hash) is not None
+            assert (
+                j.chain.tx_proof(j.chain.tip.txs[0].txid()) is not None
+            )
+            assert j.status()["snapshot"]["state"] == "assumed"
+            assert j.status()["overload"]["mining_paused"] is True
+            assert await net.run_until(
+                lambda: j.validation_state == "validated"
+                and j.metrics.snapshot_flips == 1,
+                120,
+                wall_limit_s=60,
+            ), j.status()["snapshot"]
+            assert j.chain.tip_hash == a.chain.tip_hash
+            assert j.chain.base_height == 0  # full history now
+            assert net.ledger_conserved()
+            # Still follows gossip after the flip.
+            await net.mine_on(a, spacing_s=0.5)
+            assert await net.run_until(
+                lambda: j.chain.height == 11, 30, wall_limit_s=30
+            )
+            await net.stop_all()
+
+        net.run(main())
+
+    def test_lying_snapshot_quarantined_demoted_falls_back(self):
+        """THE acceptance case: one wrong balance, internally consistent
+        (the root commits to the lie) — adopted, served, then CAUGHT by
+        background revalidation; the node quarantines the snapshot,
+        demotes the serving peer, falls back to genesis IBD, and
+        converges to the honest tip."""
+        net = SimNet(seed=12, difficulty=DIFF, device="cpu")
+
+        async def main():
+            a = await net.add_node(snapshot_interval=4)
+            b = await net.add_node(
+                peers=[net.host_name(0)], snapshot_interval=4
+            )
+            assert await net.run_until(net.links_up, 30, wall_limit_s=30)
+            for _ in range(3):
+                await net.mine_on(a, spacing_s=0.5)
+            assert await net.run_until(
+                lambda: b.chain.height == 3, 30, wall_limit_s=30
+            )
+            liar_host = "66.6.0.1"
+            liar = HostilePeer(
+                make_blocks(12, DIFF, miner_id="liar"),
+                plan=FaultPlan(snapshot_lie="balance"),
+                transport=net.net.host(liar_host),
+                host=liar_host,
+                rng=random.Random(99),
+            )
+            await liar.start()
+            j = await net.add_node(
+                name="10.0.0.9",
+                peers=[f"{liar_host}:{liar.port}", net.host_name(0)],
+                snapshot_sync=True,
+                snapshot_interval=4,
+            )
+            assert await net.run_until(
+                lambda: j.validation_state == "assumed", 60, wall_limit_s=60
+            ), j.status()["snapshot"]
+            # The lie is being served (that is what ASSUMED risks)...
+            assert j.chain.balance("liar") == 12 * BLOCK_REWARD + 1000
+            # ...until the replayed history contradicts the root.
+            assert await net.run_until(
+                lambda: j.metrics.snapshot_divergences == 1
+                and j.validation_state == "validated",
+                240,
+                wall_limit_s=120,
+            ), j.status()["snapshot"]
+            assert j.metrics.snapshot_flips == 0
+            # Quarantined + serving peer demoted + violation scored.
+            assert any(
+                p.sync_demerits > 0
+                for p in j._peers.values()
+                if p.host == liar_host
+            )
+            assert liar_host in j._violations
+            # Honest mesh out-mines the liar's fork; the fallen-back
+            # node converges to the honest tip through ordinary IBD.
+            for _ in range(12):
+                await net.mine_on(a, spacing_s=0.5)
+            assert await net.run_until(
+                lambda: j.chain.tip_hash == a.chain.tip_hash,
+                240,
+                wall_limit_s=120,
+            )
+            assert net.ledger_conserved()
+            await liar.stop()
+            await net.stop_all()
+
+        net.run(main())
+
+    def test_root_lie_refused_before_adoption(self):
+        """A corrupted state root is caught at assembly — the node never
+        enters ASSUMED, scores the forger, and falls over to the honest
+        peer."""
+        net = SimNet(seed=13, difficulty=DIFF, device="cpu")
+
+        async def main():
+            a = await net.add_node(snapshot_interval=4)
+            assert await net.run_until(
+                lambda: True, 1, wall_limit_s=30
+            )
+            for _ in range(6):
+                await net.mine_on(a, spacing_s=0.5)
+            liar_host = "66.6.0.2"
+            liar = HostilePeer(
+                make_blocks(12, DIFF, miner_id="liar"),
+                plan=FaultPlan(snapshot_lie="root"),
+                transport=net.net.host(liar_host),
+                host=liar_host,
+                rng=random.Random(98),
+            )
+            await liar.start()
+            j = await net.add_node(
+                name="10.0.0.9",
+                peers=[f"{liar_host}:{liar.port}", net.host_name(0)],
+                snapshot_sync=True,
+                snapshot_interval=4,
+            )
+            assert await net.run_until(
+                lambda: j.validation_state == "validated"
+                and j.chain.height >= 6
+                and j.chain.base_height == 0
+                or j.validation_state == "assumed",
+                120,
+                wall_limit_s=60,
+            )
+            # Never adopted the forged snapshot; the forger was scored.
+            assert j.metrics.snapshot_divergences == 0
+            assert liar_host in j._violations
+            # It may have assumed the HONEST peer's snapshot instead —
+            # either way it must end fully validated on the honest tip.
+            assert await net.run_until(
+                lambda: j.validation_state == "validated"
+                and j.chain.tip_hash == a.chain.tip_hash,
+                240,
+                wall_limit_s=120,
+            ), j.status()["snapshot"]
+            await liar.stop()
+            await net.stop_all()
+
+        net.run(main())
+
+    def test_truncated_transfer_fails_over_to_honest_peer(self):
+        """A server that stalls mid-transfer (crash/truncation profile)
+        costs one supervised deadline, then the fetch fails over."""
+        net = SimNet(seed=14, difficulty=DIFF, device="cpu")
+
+        async def main():
+            a = await net.add_node(snapshot_interval=4)
+            for _ in range(8):
+                await net.mine_on(a, spacing_s=0.5)
+            liar_host = "66.6.0.3"
+            liar = HostilePeer(
+                make_blocks(12, DIFF, miner_id="liar"),
+                plan=FaultPlan(snapshot_chunks=0),  # manifest, no chunks
+                transport=net.net.host(liar_host),
+                host=liar_host,
+                rng=random.Random(97),
+            )
+            await liar.start()
+            j = await net.add_node(
+                name="10.0.0.9",
+                peers=[f"{liar_host}:{liar.port}", net.host_name(0)],
+                snapshot_sync=True,
+                snapshot_interval=4,
+            )
+            assert await net.run_until(
+                lambda: j.validation_state == "validated"
+                and j.chain.tip_hash == a.chain.tip_hash
+                and j.chain.base_height == 0,
+                240,
+                wall_limit_s=120,
+            ), j.status()["snapshot"]
+            assert j.metrics.snapshot_stalls >= 1
+            await liar.stop()
+            await net.stop_all()
+
+        net.run(main())
+
+    def test_crash_during_revalidation_resumes_assumed(self, tmp_path):
+        """Crash mid-ASSUMED: the sidecar + store resume the assumed
+        chain through the NORMAL boot path, the background revalidation
+        restarts from genesis, and the flip still lands."""
+        net = SimNet(seed=15, difficulty=DIFF, store_dir=tmp_path, device="cpu")
+
+        async def main():
+            a = await net.add_node(snapshot_interval=4)
+            b = await net.add_node(
+                peers=[net.host_name(0)], snapshot_interval=4
+            )
+            assert await net.run_until(net.links_up, 30, wall_limit_s=30)
+            for _ in range(10):
+                await net.mine_on(a, spacing_s=0.5)
+            assert await net.run_until(
+                lambda: b.chain.height == 10, 30, wall_limit_s=30
+            )
+            jhost = "10.0.0.9"
+            j = await net.add_node(
+                name=jhost,
+                peers=[net.host_name(0)],
+                snapshot_sync=True,
+                snapshot_interval=4,
+            )
+            assert await net.run_until(
+                lambda: j.validation_state == "assumed", 60, wall_limit_s=60
+            )
+            snap_sidecar = tmp_path / f"{jhost}.dat.snapshot"
+            assert snap_sidecar.exists()
+            await net.crash_node(jhost)
+            await net.mine_on(a, spacing_s=0.5)
+            j2 = await net.recover_node(jhost)
+            # Resumed ASSUMED from the sidecar, at (at least) the base.
+            assert j2.validation_state == "assumed"
+            assert j2.chain.base_height == 8
+            assert j2.chain.balance(a.miner_id) > 0
+            assert await net.run_until(
+                lambda: j2.validation_state == "validated"
+                and j2.metrics.snapshot_flips == 1,
+                240,
+                wall_limit_s=120,
+            ), j2.status()["snapshot"]
+            assert not snap_sidecar.exists()  # flip retired the sidecar
+            assert await net.run_until(
+                lambda: j2.chain.tip_hash == a.chain.tip_hash,
+                60,
+                wall_limit_s=60,
+            )
+            assert net.ledger_conserved()
+            await net.stop_all()
+
+        net.run(main())
+
+    def test_crash_during_download_restarts_clean(self, tmp_path):
+        """Crash while the snapshot download is in flight: nothing was
+        adopted, nothing persisted — the reboot is an ordinary fresh
+        boot that simply snapshots again."""
+        net = SimNet(seed=16, difficulty=DIFF, store_dir=tmp_path, device="cpu")
+
+        async def main():
+            a = await net.add_node(snapshot_interval=4)
+            for _ in range(10):
+                await net.mine_on(a, spacing_s=0.5)
+            jhost = "10.0.0.9"
+            j = await net.add_node(
+                name=jhost,
+                peers=[net.host_name(0)],
+                snapshot_sync=True,
+                snapshot_interval=4,
+            )
+            # Crash at the first possible instant: mid-handshake or
+            # mid-download, before any verdict.
+            await net.crash_node(jhost)
+            assert jhost not in net.nodes
+            j2 = await net.recover_node(jhost)
+            assert await net.run_until(
+                lambda: j2.validation_state == "validated"
+                and j2.chain.tip_hash == a.chain.tip_hash
+                and j2.chain.base_height == 0,
+                240,
+                wall_limit_s=120,
+            ), j2.status()["snapshot"]
+            assert net.ledger_conserved()
+            await net.stop_all()
+
+        net.run(main())
+
+    def test_snapshot_join_scenario_honest_and_lying(self):
+        """The corpus entry (`p1 sim snapshot-join`) holds in both
+        modes at a small, tier-1-priced scale."""
+        from p1_tpu_torch.node.scenarios import run_scenario
+
+        r = run_scenario(
+            "snapshot-join", seed=0, difficulty=DIFF, nodes=6, device="cpu"
+        )
+        assert r["ok"], r
+        assert r["flips"] == 1 and r["samples_contradicted"] == 0
+        r = run_scenario(
+            "snapshot-join",
+            seed=1,
+            difficulty=DIFF,
+            nodes=6,
+            chain_blocks=4,
+            lie="balance",
+            device="cpu",
+        )
+        assert r["ok"], r
+        assert r["divergences"] >= 1

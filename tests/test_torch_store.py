@@ -15,9 +15,10 @@ stores, segment files, ``.hdrx`` and ``.sdx`` sidecars, and a store written
 by either loads in the other to the same state.
 
 test_storefault.py's ``TestNodeDegradation`` runs on the port's ``Node``
-(its ENOSPC case is ``slow``, as in the reference).  Waiting for the
-simulation plane (ROADMAP Queue A item 7c; it runs ``SimNet``):
-test_segstore.py's ``TestSegmentEIO``.  test_headerplane.py's 1M-block acceptance
+(its ENOSPC case is ``slow``, as in the reference), and test_segstore.py's
+``TestSegmentEIO`` on the port's ``SimNet`` with ``device="cpu"``.
+``TestManifestRace`` holds the port's segmented-store manifest against
+threads of one process rewriting it at once.  test_headerplane.py's 1M-block acceptance
 (``test_archive_scale_acceptance_1m``, slow) is a benchmark-scale run and
 is not mirrored.
 """
@@ -30,6 +31,7 @@ import signal
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 import pytest
@@ -49,7 +51,7 @@ from p1_tpu_torch.chain.headerplane import (
     write_segment_index,
 )
 from p1_tpu_torch.chain.proof import verify_tx_proof
-from p1_tpu_torch.chain.segstore import DEFAULT_SEGMENT_BYTES, SegmentInfo
+from p1_tpu_torch.chain.segstore import DEFAULT_SEGMENT_BYTES, SegmentInfo, read_manifest
 from p1_tpu_torch.chain.store import MAGIC, V2_MAGIC
 from p1_tpu_torch.chain.testing import FaultStore, SegFaultStore, StoreFaultPlan
 from p1_tpu_torch.core.hashutil import sha256d
@@ -1428,3 +1430,112 @@ class TestNodeDegradation:
                 await node.stop()
 
         run(scenario())
+
+
+class TestSegmentEIO:
+    def test_segment_eio_degrades_serve_only_and_recovers(self, tmp_path):
+        """A segment going EIO under a live body refetch degrades the
+        node to serve-only (the store recovery loop) WITHOUT dropping the
+        requesting peer; clearing the fault recovers end to end and the
+        syncing peer reaches the tip."""
+        from p1_tpu_torch.node.netsim import SimNet
+
+        net = SimNet(
+            seed=7,
+            difficulty=8,
+            store_dir=tmp_path,
+            segmented_store=True,
+            segment_bytes=400,
+            device="cpu",
+        )
+
+        async def main():
+            v = await net.add_node(body_cache_blocks=2)
+            for _ in range(8):
+                await net.mine_on(v, spacing_s=0.5)
+            v.chain.evict_bodies(2)
+            assert v.chain.bodies_evicted > 0
+            store = net.stores[net.host_name(0)]
+            store.plan = StoreFaultPlan(fail_preads_from=1)
+            j = await net.add_node(
+                peers=[net.host_name(0)], sync_stall_timeout_s=3.0
+            )
+            assert await net.run_until(
+                lambda: v.status()["storage"]["degraded"],
+                60,
+                wall_limit_s=60,
+            )
+            # The failing segment is remembered, the peer session is
+            # NOT torn down, and header serving never stopped.
+            assert store.read_failed_segments
+            assert v.peer_count() >= 1
+            assert len(
+                v.chain.headers_after([v.chain.genesis.block_hash()])
+            ) == v.chain.height
+            store.clear_faults()
+            assert await net.run_until(
+                lambda: not v._store_degraded, 120, wall_limit_s=60
+            )
+            assert await net.run_until(
+                lambda: j.chain.height == v.chain.height,
+                120,
+                wall_limit_s=60,
+            )
+            await net.stop_all()
+
+        net.run(main())
+
+
+class TestManifestRace:
+    """Threads of one process rewriting one segmented store's manifest at
+    once (a node's loop and its sidecar spill do) each write a temporary
+    file of their own: every rename succeeds, every read between the
+    renames parses, and no temporary file is left."""
+
+    WRITERS = 4
+    REWRITES = 150
+
+    def test_concurrent_manifest_rewrites_all_parse(self, blocks, tmp_path):
+        path = tmp_path / "chain.dat"
+        store = SegmentedStore(path, segment_bytes=SEG_BYTES)
+        for i, block in enumerate(blocks[1:], start=1):
+            store.append(block, height=i)
+        store._write_manifest()
+        want = read_manifest(path)
+        assert want is not None and len(want["segments"]) > 1
+        errors: list[BaseException] = []
+        bad_reads = []
+        start = threading.Barrier(self.WRITERS + 1)
+        done = threading.Event()
+
+        def writer():
+            start.wait()
+            try:
+                for _ in range(self.REWRITES):
+                    store._write_manifest()
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        def reader():
+            start.wait()
+            while not done.is_set():
+                if read_manifest(path) != want:
+                    bad_reads.append(path.read_bytes())
+
+        threads = [threading.Thread(target=writer) for _ in range(self.WRITERS)]
+        watcher = threading.Thread(target=reader)
+        for t in (*threads, watcher):
+            t.start()
+        for t in threads:
+            t.join()
+        done.set()
+        watcher.join()
+        try:
+            assert not errors, errors[:3]
+            assert not bad_reads, f"{len(bad_reads)} torn manifest reads"
+            assert read_manifest(path) == want
+            assert not list(tmp_path.glob("chain.dat.mf.*"))
+            # The store still loads through its manifest.
+            assert store.load_chain(DIFF, trusted=True).height == len(blocks) - 1
+        finally:
+            store.close()

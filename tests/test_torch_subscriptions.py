@@ -1,10 +1,8 @@
 """The port's wallet push plane (``node/subscriptions.py``) against the JAX
 package's.
 
-Mirrors the non-query-plane cases of tests/test_subscriptions.py
-(``TestFilterHeaderChain``, ``TestSharedDecodeEquivalence``,
-``TestSubscriptionManager``, ``TestWatchEndToEnd.test_node_push_submit_confirm_watch``),
-run against ``p1_tpu_torch``: nodes with ``backend="cpu", device="cpu"``
+Mirrors tests/test_subscriptions.py: the reference's cases, run against
+``p1_tpu_torch``: nodes with ``backend="cpu", device="cpu"``
 (``tests/torch_testutil.py``: hashlib mining, the ``device`` signature
 rung's plain version), transfers signed by the JAX package's keys and
 carried into the port by their bytes.
@@ -35,21 +33,23 @@ Four property families anchor the tier:
   demoted, and the watch fails over with ZERO missed confirmations —
   the stream stays gap-free across the liar.
 
-Waiting for the simulation, serving and fault planes (ROADMAP Queue A
-item 7c): ``TestWatchEndToEnd``'s replica cases
+``TestWatchEndToEnd``'s replica cases
 (``test_replica_push_with_cursor_resume``,
 ``test_lying_replica_demoted_failover_zero_missed``,
-``test_lone_lying_replica_fails_the_watch_loudly``: they run ``serve_replica``).
+``test_lone_lying_replica_fails_the_watch_loudly``) watch the port's
+``serve_replica``.
 """
 
 import asyncio
 import hashlib
 import random
 
-from test_torch_node import CHUNK, DIFF, fund, run
+import pytest
+
+from test_torch_node import CHUNK, DIFF, fund, run, wait_until
 from torch_testutil import NodeConfig, account, key_for
 
-from p1_tpu_torch.chain import Chain
+from p1_tpu_torch.chain import Chain, save_chain
 from p1_tpu_torch.chain import filters as fmod
 from p1_tpu_torch.chain.filters import (
     GENESIS_FILTER_HEADER,
@@ -63,8 +63,9 @@ from p1_tpu_torch.core.tx import Transaction
 from p1_tpu_torch.hashx import get_backend
 from p1_tpu_torch.miner import Miner
 from p1_tpu_torch.node import Node, protocol
-from p1_tpu_torch.node.client import watch
+from p1_tpu_torch.node.client import CommitmentViolation, get_filter_headers, watch
 from p1_tpu_torch.node.protocol import GapEvent, MsgType
+from p1_tpu_torch.node.queryplane import serve_replica
 from p1_tpu_torch.node.subscriptions import (
     SubscriptionManager,
     block_items_index,
@@ -646,5 +647,179 @@ class TestWatchEndToEnd:
         view.block_items_at = (
             lambda h: {} if h in forged else real_items_at(h)
         )
+
+    def test_replica_push_with_cursor_resume(self, tmp_path):
+        """Watch a replica from a verified past cursor: the committed
+        window replays first (gap-free), then refresh-driven live
+        events continue the same stream as the node keeps mining."""
+        store = str(tmp_path / "chain.dat")
+
+        async def scenario():
+            node = Node(_config(store_path=store))
+            await node.start()
+            srv, gen = None, None
+            try:
+                await fund(node, "alice", blocks=4)
+                srv = await serve_replica(store, DIFF, refresh_interval_s=0.05)
+                assert await wait_until(
+                    lambda: srv.view.filter_headers.tip_height
+                    >= node.chain.height
+                )
+                cursor_h = 2
+                (fh,) = await get_filter_headers(
+                    "127.0.0.1", srv.port, cursor_h, 1, DIFF
+                )
+                gen = watch(
+                    "127.0.0.1", srv.port, [account("alice").encode()],
+                    DIFF, cursor=(cursor_h, fh), max_session_failures=5,
+                )
+                agen = gen.__aiter__()
+                heights = []
+                for _ in range(node.chain.height - cursor_h):
+                    ev = await asyncio.wait_for(agen.__anext__(), 30)
+                    heights.append(ev["height"])
+                    assert ev["matched"]  # every block pays alice
+                assert heights == list(range(cursor_h + 1, node.chain.height + 1))
+                # Live tail: mine more, the refresh loop pushes it.
+                await fund(node, "alice", blocks=1)
+                ev = await asyncio.wait_for(agen.__anext__(), 30)
+                assert ev["height"] == heights[-1] + 1
+            finally:
+                if gen is not None:
+                    await gen.aclose()
+                if srv is not None:
+                    await srv.stop()
+                await node.stop()
+
+        run(scenario())
+
+    def test_lying_replica_demoted_failover_zero_missed(self, tmp_path):
+        """The acceptance scenario, literally: one of two replicas
+        forges its filter stream from height k to hide a payment.  A
+        watch anchored at an honest past cursor rides the liar while it
+        tells the truth, catches the forgery at k via cross-check plus
+        hash-pinned adjudication (CommitmentViolation → demote), fails
+        over to the honest replica, and the yielded stream is STILL
+        gap-free with the hidden payment delivered — zero missed
+        confirmations across the liar."""
+        store = str(tmp_path / "chain.dat")
+        chain = build_chain(8, difficulty=1, rng=random.Random(11))
+
+        def paid_heights(item):
+            return {
+                h
+                for h in range(1, chain.height + 1)
+                if block_items_index(
+                    chain.get(chain.main_hash_at(h))
+                ).get(item)
+            }
+
+        # Pick a watched account the fixture pays late enough that the
+        # forgery window can hide a real payment (the chain's tx mix
+        # varies with the hash seed; the property must not).
+        bob, paid, k = None, None, 0
+        for label in ("bob", "carol", "dave", "alice"):
+            item = account(label).encode()
+            got = paid_heights(item)
+            if got and max(got) >= 3:
+                bob, paid, k = item, got, max(got)
+                break
+        assert bob is not None
+        save_chain(chain, store)
+
+        async def scenario():
+            liar = await serve_replica(store, 1, refresh_interval_s=0.1)
+            honest = await serve_replica(store, 1, refresh_interval_s=0.1)
+            gen = None
+            try:
+                self._forge_replica(liar, k)
+                anchor_h = 1
+                (fh,) = await get_filter_headers(
+                    "127.0.0.1", honest.port, anchor_h, 1, 1
+                )
+                gen = watch(
+                    "127.0.0.1", liar.port, [bob], 1,
+                    cursor=(anchor_h, fh),
+                    fallback_peers=[("127.0.0.1", honest.port)],
+                    cross_check_every=1,
+                    reconnect_delay_s=0.05,
+                    max_session_failures=10,
+                )
+                events = []
+                async for ev in gen:
+                    events.append(ev)
+                    if ev["height"] == chain.height:
+                        break
+                heights = [e["height"] for e in events]
+                assert heights == list(range(anchor_h + 1, chain.height + 1))
+                # Zero missed confirmations: every bob-paying height in
+                # the window is a matched event, INCLUDING the forged
+                # ones — they were served by the honest replica.
+                got = {e["height"] for e in events if e["matched"]}
+                assert got == {h for h in paid if h > anchor_h}
+                by_height = {e["height"]: e for e in events}
+                assert by_height[k]["peer"] == ("127.0.0.1", honest.port)
+                assert any(
+                    e["peer"] == ("127.0.0.1", liar.port)
+                    for e in events
+                    if e["height"] < k
+                )
+                # The verdict stuck server-side too: the liar pushed at
+                # least one event, then lost the session for good.
+                assert liar.subscriptions.snapshot()["live"] == 0
+                # And every yielded commitment matches the true chain.
+                for e in events:
+                    assert (
+                        chain.filter_headers.header_at(e["height"])
+                        == e["filter_header"]
+                    )
+            finally:
+                if gen is not None:
+                    await gen.aclose()
+                await liar.stop()
+                await honest.stop()
+
+        run(scenario())
+
+    def test_lone_lying_replica_fails_the_watch_loudly(self, tmp_path):
+        """No fallback to adjudicate against: a filter that breaks the
+        H-link from the caller's verified cursor is still caught
+        LOCALLY and the watch dies with CommitmentViolation, never
+        yielding the forged event as verified."""
+        store = str(tmp_path / "chain.dat")
+        chain = build_chain(5, difficulty=1, rng=random.Random(2))
+        save_chain(chain, store)
+
+        async def scenario():
+            srv = await serve_replica(store, 1, refresh_interval_s=0.1)
+            gen = None
+            try:
+                # Forge the filters but NOT the commitment chain: the
+                # served fheader no longer extends H(fhash || prev).
+                view = srv.view
+                real = view.filter_at
+                view.filter_at = lambda h: (
+                    fmod.encode_filter(b"\x99" * 32, {b"zzz"})
+                    if h >= 3
+                    else real(h)
+                )
+                (fh,) = await get_filter_headers(
+                    "127.0.0.1", srv.port, 1, 1, 1
+                )
+                gen = watch(
+                    "127.0.0.1", srv.port, [b"whatever"], 1,
+                    cursor=(1, fh), max_session_failures=3,
+                )
+                heights = []
+                with pytest.raises(CommitmentViolation):
+                    async for ev in gen:
+                        heights.append(ev["height"])
+                assert heights == [2]  # verified up to the forgery only
+            finally:
+                if gen is not None:
+                    await gen.aclose()
+                await srv.stop()
+
+        run(scenario())
 
 

@@ -30,11 +30,11 @@ Four contracts under test:
   registry over a simulated wire with the stage spans populated, the
   replica answering GETMETRICS, and the Prometheus/table renderers.
 
-Waiting for the simulation, serving and fault planes (ROADMAP Queue A
-item 7c): ``TestMetricsWire.test_node_serves_metrics_over_the_sim_wire`` (``SimNet``),
-``TestMetricsWire.test_replica_answers_getmetrics`` (the query plane),
-``TestDeterminismPair`` and ``TestScenarioTelemetrySections`` (scenarios and
-chaos).
+``TestMetricsWire.test_node_serves_metrics_over_the_sim_wire``,
+``TestDeterminismPair`` and ``TestScenarioTelemetrySections`` run the
+port's ``SimNet``, scenarios and chaos plane with ``device="cpu"``;
+``TestMetricsWire.test_replica_answers_getmetrics`` the port's query
+plane.
 """
 
 from __future__ import annotations
@@ -42,7 +42,11 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
+import pathlib
 import random
+import subprocess
+import sys
 
 import pytest
 
@@ -60,6 +64,8 @@ from p1_tpu_torch.node.telemetry import (
 )
 
 _BUCKET_FACTOR = math.sqrt(2.0)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 class TestHistogram:
@@ -333,4 +339,160 @@ class TestMetricsWire:
         # survive overload even while the latency export does not.
         assert MsgType.GETSTATUS not in _SHED_DROPS
 
+    def test_node_serves_metrics_over_the_sim_wire(self):
+        """Two simulated nodes gossip two mined blocks, then a raw sim
+        client scrapes GETMETRICS: the stage spans are populated (in
+        virtual time), the reply decodes, and the receiver measured
+        propagation."""
+        from p1_tpu_torch.node.netsim import SimNet
 
+        net = SimNet(seed=5, difficulty=8, device="cpu")
+
+        async def main():
+            a = await net.add_node()
+            b = await net.add_node(peers=[net.host_name(0)])
+            assert await net.run_until(
+                lambda: a.peer_count() == 1, 30, wall_limit_s=60
+            )
+            for _ in range(2):
+                await net.mine_on(a, spacing_s=1.0)
+            assert await net.run_until(
+                lambda: b.chain.height == 2, 60, wall_limit_s=60
+            )
+            reader, writer = await net.net.host("10.99.0.1").connect(
+                net.host_name(0), a.port
+            )
+            await protocol.write_frame(
+                writer,
+                protocol.encode_hello(
+                    protocol.Hello(a.chain.genesis.block_hash(), 0, 0, 0)
+                ),
+            )
+            await protocol.read_frame(reader)  # node's HELLO
+            await protocol.write_frame(writer, protocol.encode_getmetrics())
+            while True:
+                mtype, body = protocol.decode(
+                    await protocol.read_frame(reader)
+                )
+                if mtype is MsgType.METRICS:
+                    break
+            writer.close()
+            snap_b = b.telemetry.snapshot()
+            await net.stop_all()
+            return body, snap_b
+
+        snap, snap_b = net.run(main())
+        assert snap["role"] == "node" and snap["height"] == 2
+        assert snap["counters"]["blocks_mined"] == 2
+        hists = snap["histograms"]
+        assert hists["stage.validate_s"]["count"] >= 2
+        assert hists["stage.relay_s"]["count"] >= 2
+        # The receiver's propagation histogram carries VIRTUAL-time
+        # delays consistent with the sim's ~ms link latency.
+        prop = snap_b["histograms"]["block.propagation_s"]
+        assert prop["count"] >= 1
+        assert 0.0 < prop["p95"] < 1.0
+
+    def test_replica_answers_getmetrics(self, tmp_path):
+        from p1_tpu_torch.benchmarks.host_ingest import build_blocks
+
+        from p1_tpu_torch.chain.store import ChainStore
+        from p1_tpu_torch.core.block import Block
+        from p1_tpu_torch.node.queryplane import QueryPlaneServer, ReplicaView
+
+        _chain, raws = build_blocks(4, 0, 1)
+        store = ChainStore(tmp_path / "r.chain", fsync=False)
+        try:
+            for raw in raws:
+                store.append(Block.deserialize(raw))
+        finally:
+            store.close()
+        view = ReplicaView(tmp_path / "r.chain", 1)
+        try:
+            server = QueryPlaneServer(view)
+            reply = server._answer(MsgType.GETMETRICS, None)
+            mtype, snap = protocol.decode(reply)
+            assert mtype is MsgType.METRICS
+            assert snap["role"] == "replica" and snap["height"] == 4
+        finally:
+            view.close()
+
+
+class TestDeterminismPair:
+    """Observers, not participants: the 200-node sim trace digest is
+    byte-identical with telemetry enabled and disabled."""
+
+    @staticmethod
+    def _run(telemetry_on: bool):
+        from p1_tpu_torch.node.scenarios import partition_heal
+
+        return partition_heal(
+            nodes=200, seed=7, telemetry=telemetry_on, device="cpu"
+        )
+
+    def test_enabled_twice_and_disabled_share_one_digest(self):
+        a = self._run(True)
+        b = self._run(True)
+        c = self._run(False)
+        assert a["ok"] and b["ok"] and c["ok"]
+        assert a["trace_digest"] == b["trace_digest"] == c["trace_digest"]
+        # The enabled runs DID record (the pair is not vacuous) and the
+        # disabled run did not.
+        assert a["telemetry"]["propagation"]["samples"] > 0
+        assert c["telemetry"]["propagation"] is None
+
+    def test_cross_process_under_pythonhashseed(self):
+        """`p1 sim partition-heal` with and without --no-telemetry in
+        separate interpreters: same digest — nothing hash-seed- or
+        process-dependent hides in the recording path."""
+
+        def one_run(extra):
+            proc = subprocess.run(
+                [
+                    sys.executable, "-m", "p1_tpu_torch", "sim",
+                    "partition-heal", "--nodes", "200", "--seed", "7",
+                    "--device", "cpu", *extra,
+                ],
+                capture_output=True,
+                text=True,
+                timeout=240,
+                cwd=REPO,
+                env={**os.environ, "PYTHONHASHSEED": "0"},
+            )
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        on = one_run([])
+        off = one_run(["--no-telemetry"])
+        assert on["ok"] and off["ok"]
+        assert on["trace_digest"] == off["trace_digest"]
+        assert on["telemetry"]["propagation"]["samples"] > 0
+        assert off["telemetry"]["propagation"] is None
+
+
+class TestScenarioTelemetrySections:
+    """The sim/chaos reports' timeline sections (virtual-time
+    propagation histograms) — and the wan scenario's p95 SLO."""
+
+    def test_wan_asserts_a_p95_propagation_bound(self):
+        from p1_tpu_torch.node.scenarios import wan
+
+        r = wan(region_nodes=3, blocks=4, seed=1, device="cpu")
+        assert r["ok"] and r["propagation_bounded"]
+        prop = r["telemetry"]["propagation"]
+        assert prop["samples"] > 0
+        assert prop["p95_ms"] <= r["propagation_p95_bound_ms"]
+        # The bound is load-bearing: an impossible bound fails the run.
+        tight = wan(
+            region_nodes=3, blocks=4, seed=1,
+            propagation_p95_bound_ms=0.001,
+            device="cpu",
+        )
+        assert not tight["ok"] and not tight["propagation_bounded"]
+
+    def test_chaos_report_carries_the_section(self):
+        from p1_tpu_torch.node.chaos import run_chaos
+
+        r = run_chaos(seed=3, nodes=4, n_events=4, device="cpu")
+        assert r["ok"], r["violations"]
+        assert "propagation" in r["telemetry"]

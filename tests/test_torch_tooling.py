@@ -14,12 +14,15 @@ Without a card and without ``--device cpu`` an untrusted load raises.
 test_cli.py's ``node``, ``net``, ``tx``, ``status``, ``metrics``,
 ``account``, ``fees``, ``proof``, ``headers``, ``watch`` and ``maintain``
 cases are in tests/test_torch_cli.py, test_chain.py's ``TestCompact``
-in tests/test_torch_chain.py.  Waiting for the serving plane (ROADMAP
-Queue A item 7c): the ``serve`` cases.
+in tests/test_torch_chain.py.  ``TestServe`` is test_cli.py's: a
+read-only replica process over a port store, answering the port's client.
 """
 
 import json
+import pathlib
 import shutil
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -40,6 +43,7 @@ from p1_tpu.miner import Miner as RefMiner
 from p1_tpu_torch import cli
 from p1_tpu_torch.core import keys, sigcache
 
+REPO = pathlib.Path(__file__).resolve().parent.parent
 DIFF = 8
 _MINER = RefMiner(backend=ref_get_backend("cpu"))
 
@@ -222,3 +226,100 @@ def test_copy_of_store_loads_the_same_through_both_clis(tmp_path, capsys, chain_
     got = _run(cli.main, ["balances", "--store", str(tmp_path / "b.dat"), "--device", "cpu"], capsys)
     assert got == want
     assert got[1][0]["height"] == 12 and got[1][0]["conserved"] is True
+
+
+class TestServe:
+    """`p1 serve`: a read-only replica worker process over a
+    chain store — help smoke plus one subprocess e2e proving the JSON
+    ready line, real query service, and the --deadline exit."""
+
+    def test_help_smoke(self):
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "serve", "--help"],
+            capture_output=True,
+            text=True,
+            timeout=110,
+            cwd=REPO,
+        )
+        assert proc.returncode == 0
+        assert "--store" in proc.stdout and "--workers" in proc.stdout
+
+    def test_worker_count_validation(self, tmp_path):
+        proc = subprocess.run(
+            [
+                sys.executable,
+                "-m",
+                "p1_tpu_torch",
+                "serve",
+                "--store",
+                str(tmp_path / "x.dat"),
+                "--port",
+                "0",
+                "--workers",
+                "2",
+            ],
+            capture_output=True,
+            text=True,
+            timeout=110,
+            cwd=REPO,
+        )
+        assert proc.returncode == 2
+        assert "explicit --port" in proc.stderr
+
+    def test_serve_e2e_queries_then_deadline_exit(self, tmp_path):
+        import asyncio
+
+        from p1_tpu_torch.chain import ChainStore
+        from p1_tpu_torch.node.client import get_headers, get_status
+        from p1_tpu_torch.node.testing import make_blocks
+
+        store = tmp_path / "chain.dat"
+        blocks = make_blocks(5, difficulty=12)
+        s = ChainStore(store)
+        try:
+            for block in blocks[1:]:
+                s.append(block)
+        finally:
+            s.close()
+        proc = subprocess.Popen(
+            [
+                sys.executable,
+                "-m",
+                "p1_tpu_torch",
+                "serve",
+                "--store",
+                str(store),
+                "--difficulty",
+                "12",
+                "--port",
+                "0",
+                "--deadline",
+                "30",
+            ],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL,
+            text=True,
+            cwd=REPO,
+        )
+        try:
+            ready = json.loads(proc.stdout.readline())
+            assert ready["config"] == "serve" and ready["height"] == 5
+
+            async def _query():
+                headers = await get_headers(
+                    "127.0.0.1", ready["port"], 12
+                )
+                status = await get_status(
+                    "127.0.0.1", ready["port"], 12
+                )
+                return headers, status
+
+            headers, status = asyncio.run(_query())
+            assert len(headers) == 6  # genesis + 5
+            assert [h.block_hash() for h in headers] == [
+                b.block_hash() for b in blocks
+            ]
+            assert status["role"] == "replica" and status["height"] == 5
+        finally:
+            proc.terminate()
+            proc.wait(timeout=30)
