@@ -8,8 +8,9 @@ Drives the port's paths, ``mine``, ``replay``, signature validation
 chain store, a node and the 4-node net, the native host tier, the
 multi-chip plane (sharded search and MSM, a pod), and the simulation,
 serving and fault planes (``sim``, ``chaos``, ``serve``), on the GPU and
-its host in phases, one JSON line each, and fails (non-zero exit, no
-last line) if any phase fails:
+its host in phases, then runs the port's static analyzer over the
+checkout, one JSON line each, and fails (non-zero exit, no last line) if
+any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
    ``p1_tpu_torch/hashx/csrc/sha256d_search.cu`` with ``nvcc`` for
@@ -165,6 +166,12 @@ last line) if any phase fails:
    its launches (``sha256d_search`` > 0 on the card, none on the host);
    then ``serve --workers 2`` over phase 10's chain answers a headers and
    a proof query through the port's client and drains on SIGTERM.
+16. lint — ``python -m p1_tpu_torch lint --json`` as a child process on
+   this checkout, the tree the phases above ran: the port's
+   determinism/async-safety analyzer (``p1_tpu_torch/analysis``, host
+   code) must exit 0 with all 9 rules run and no violation, stale grant
+   or parse error; it prints the files read, the granted findings and
+   its seconds.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -2151,6 +2158,37 @@ def phase_planes(search, msm, chain, device: str = "cuda") -> tuple[dict, dict]:
     return line, launches
 
 
+LINT_RULES = 9  # the analyzer's registry: a whole run runs every rule
+
+
+def lint_line(returncode: int, report: dict, seconds: float) -> dict:
+    """Phase 16's verdict on one ``lint --json`` run: its line, or an
+    ``AssertionError`` unless the run exited 0 with every rule run and its
+    violations, stale grants and parse errors all empty."""
+    faults = {key: report.get(key) for key in ("violations", "stale", "parse_errors") if report.get(key) != []}
+    if returncode != 0 or faults or len(report.get("rules", ())) != LINT_RULES:
+        raise AssertionError(f"lint exit {returncode}, rules {report.get('rules')}, {faults}")
+    return {"phase": "lint", "files": report["files"], "rules": len(report["rules"]),
+            "granted": len(report["granted"]), "seconds": seconds}  # fmt: skip
+
+
+def phase_lint() -> dict:
+    """Phase 16: ``python -m p1_tpu_torch lint --json`` on this checkout,
+    held to ``lint_line``; the analyzer reads the sources and runs nothing
+    on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "p1_tpu_torch", "lint", "--json"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)  # fmt: skip
+    seconds = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        raise AssertionError(f"lint exit {proc.returncode}, no report: {proc.stderr[-2000:]}") from None
+    line = lint_line(proc.returncode, report, seconds)
+    emit(line)
+    return line
+
+
 def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
     """(ALU, FMA) instructions of the reference's operations on ``points``
     points and one batch, at ``per_op``'s (ALU, FMA) cost per operation."""
@@ -2367,6 +2405,9 @@ def main() -> int:
     _, plane_launches = phase_planes(kernel, cuda_ed25519.ed25519_msm, built_store)
     ed25519["launches_planes"] = plane_launches["ed25519_msm"]
     ed25519["launches"] += plane_launches["ed25519_msm"]
+
+    # -- 16. the port's static analyzer over this checkout --------------------
+    phase_lint()
 
     # -- every process this run started has ended --------------------------
     stop_resource_tracker()

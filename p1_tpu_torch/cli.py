@@ -56,6 +56,13 @@ digest), and without a card and without ``--device cpu`` both exit 2.
   python -m p1_tpu_torch sim fee-spam --seed 0 --device cpu
   python -m p1_tpu_torch chaos --seed 0 --schedules 2 --device cpu
   python -m p1_tpu_torch serve --store chain.p1 --difficulty 12 --port 9555 --workers 2
+
+``lint`` runs the determinism/async-safety analyzer
+(``p1_tpu_torch/analysis``) over the port's own sources: host code that
+reads files and runs nothing on the card, so it takes no ``--device``
+(exit 0 clean, 1 violations, stale grants or parse errors, 2 usage):
+
+  python -m p1_tpu_torch lint [--json] [--rule R] [--granted] [--path P]
 """
 
 from __future__ import annotations
@@ -991,6 +998,42 @@ def build_parser() -> argparse.ArgumentParser:
         "block sealed by the sha256d_search kernel, signature batches on "
         "the card; fails without a card) or cpu (hashlib sealing, the "
         "plain PyTorch signature rung); the trace digest is the same",
+    )
+
+    p = sub.add_parser(
+        "lint",
+        help="determinism/async-safety static analysis over p1_tpu_torch "
+        "(exit 0 clean, 1 findings or stale grants, 2 usage)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        dest="as_json",
+        help="full machine-readable report on stdout",
+    )
+    p.add_argument(
+        "--rule",
+        action="append",
+        default=None,
+        metavar="NAME",
+        help="run only this rule (repeatable; default: all registered "
+        "rules — see docs/LINT.md for the catalog)",
+    )
+    p.add_argument(
+        "--granted",
+        action="store_true",
+        help="also list allowlisted findings with their grant reasons",
+    )
+    p.add_argument(
+        "--path",
+        action="append",
+        default=None,
+        metavar="FILE_OR_DIR",
+        help="report only findings under this file/directory (repeatable; "
+        "package-relative like node/node.py, or a real path).  The "
+        "analysis still runs whole-package and settlement stays global, "
+        "so a scoped run can't hide a stale grant — this narrows what "
+        "you LOOK at for fast pre-commit loops",
     )
     return parser
 
@@ -2319,6 +2362,86 @@ def cmd_chaos(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    """`lint`: the AST determinism/async-safety pass
+    (p1_tpu_torch/analysis) over the port's sources.
+
+    Exit-code contract (tests/test_torch_cli.py pins it): 0 = every rule
+    clean (no unallowlisted findings, no stale grants), 1 = violations,
+    2 = usage (argparse errors, unknown --rule names, bad --path)."""
+    from pathlib import Path
+
+    from p1_tpu_torch.analysis import RULES, run_analysis
+    from p1_tpu_torch.analysis.allowlist import GRANTS
+    from p1_tpu_torch.analysis.engine import PKG_ROOT
+
+    if args.rule:
+        unknown = [r for r in args.rule if r not in RULES]
+        if unknown:
+            print(
+                f"p1 lint: unknown rule(s) {', '.join(sorted(unknown))} "
+                f"(have: {', '.join(sorted(RULES))})",
+                file=sys.stderr,
+            )
+            return 2
+        rules = [RULES[r] for r in args.rule]
+    else:
+        rules = None
+
+    paths = None
+    if args.path:
+        paths = []
+        for raw in args.path:
+            # package-relative spellings first (the common pre-commit
+            # case: `lint --path node/node.py` from anywhere), then
+            # real filesystem paths.
+            p = (PKG_ROOT / raw).resolve()
+            if not p.exists():
+                p = Path(raw).resolve()
+            if not p.exists():
+                print(f"p1 lint: no such path: {raw}", file=sys.stderr)
+                return 2
+            try:
+                rel = p.relative_to(PKG_ROOT).as_posix()
+            except ValueError:
+                print(
+                    f"p1 lint: {raw} is outside the analyzed package "
+                    f"({PKG_ROOT})",
+                    file=sys.stderr,
+                )
+                return 2
+            if rel == ".":
+                continue  # the whole package: no constraint
+            paths.append(rel + "/" if p.is_dir() else rel)
+        paths = paths or None
+
+    report = run_analysis(rules=rules, paths=paths)
+    if args.as_json:
+        print(json.dumps(report.to_json()))
+    else:
+        for f in report.violations:
+            print(f)
+        for s in report.stale:
+            print(f"stale grant: {s}")
+        for e in report.parse_errors:
+            print(f"parse error: {e}")
+        if args.granted:
+            for f in report.granted:
+                reason = GRANTS[f.rule][f.file][f.key]
+                print(f"granted: {f}  [{reason}]")
+        scoped = (
+            f", scoped to {', '.join(report.scoped_to)}"
+            if report.scoped_to
+            else ""
+        )
+        print(
+            f"p1 lint: {report.files} files, {len(report.rules)} rules, "
+            f"{len(report.violations)} violation(s), "
+            f"{len(report.granted)} granted, {len(report.stale)} stale "
+            f"grant(s){scoped}"
+        )
+    return 0 if report.clean else 1
+
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
@@ -2351,6 +2474,7 @@ def main(argv=None) -> int:
         "serve": cmd_serve,
         "sim": cmd_sim,
         "chaos": cmd_chaos,
+        "lint": cmd_lint,
     }[args.cmd]
     return handler(args)
 

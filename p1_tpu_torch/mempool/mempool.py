@@ -25,7 +25,10 @@ highest fee wins.
 The port's copy of ``p1_tpu/mempool/mempool.py``: the same admission
 verdicts, and the persistence files (``save_mempool``, ``dump_mempool``,
 ``write_mempool_file``) byte for byte the reference's.  Admission checks
-each signature alone, on the port's serial rung (pure Python).
+each signature alone, on the port's serial rung: the native C++ engine
+(``native/ed25519.cpp`` through ``core/_ed25519_native.py``, what the
+default ladder gives serial verifies wherever ``g++`` builds it), pure
+Python only where the native library does not build.
 """
 
 from __future__ import annotations

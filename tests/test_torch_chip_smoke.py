@@ -8,7 +8,9 @@ of the process.  Without a card the smoke itself exits 2 and starts
 nothing.  Phase 15's pinned trace digests are what the JAX package
 computes now (the 1,000-node pin is ``slow``, as the reference's own
 1,000-node run is), and the phase runs end to end on the host
-(``device="cpu"``) at its 200-node size.
+(``device="cpu"``) at its 200-node size.  Phase 16, ``lint``, runs on
+the host as it does beside the card, and its verdict passes a clean
+report and fails one with a violation or a stale grant.
 """
 
 import json
@@ -141,3 +143,44 @@ def test_phase_planes_rehearsed_on_the_host():
     assert out["checked"] > 0 and out["left"] == []
     assert out["launches"] == {"sha256d_search": 0, "ed25519_msm": 0}
     assert out["serve"]["headers"] == 9 and out["serve"]["exit"] == 0
+
+
+def test_phase_lint_rehearsed_on_the_host():
+    """Phase 16 as the smoke runs it: ``lint --json`` over this checkout
+    in a child process, clean, all 9 rules, nothing left running."""
+    out = run("""
+        import json
+        import chip_smoke as cs
+
+        cs.adopt_orphans()
+        line = cs.phase_lint()
+        print(json.dumps({**line, "left": cs.stop_children()}))
+    """)
+    assert out["phase"] == "lint" and out["rules"] == 9
+    assert out["files"] >= 90 and out["granted"] > 0 and out["seconds"] > 0
+    assert out["left"] == []
+
+
+_CLEAN_LINT = {"files": 97, "rules": ["r"] * 9, "clean": True, "violations": [],
+               "granted": [{"file": "node/node.py", "line": 1, "rule": "wall-clock", "detail": "d",
+                            "key": "asyncio.sleep"}],
+               "stale": [], "parse_errors": []}  # fmt: skip
+
+
+@pytest.mark.parametrize(
+    "returncode,change",
+    [
+        (1, {"violations": [{"file": "node/x.py", "line": 3, "rule": "wall-clock", "detail": "d", "key": "time.time"}]}),
+        (1, {"stale": ["wall-clock: node/node.py: grant 'time.time' never used"]}),
+        (1, {"parse_errors": ["node/x.py: invalid syntax (line 1)"]}),
+        (0, {"rules": ["r"] * 8}),
+        (2, {}),
+    ],
+    ids=["violation", "stale", "parse-error", "rules-missing", "exit-2"],
+)
+def test_phase_lint_fails_on_a_dirty_report(returncode, change):
+    cs = _smoke()
+    assert cs.lint_line(0, _CLEAN_LINT, 1.5) == {"phase": "lint", "files": 97, "rules": 9, "granted": 1,
+                                                  "seconds": 1.5}  # fmt: skip
+    with pytest.raises(AssertionError):
+        cs.lint_line(returncode, {**_CLEAN_LINT, **change}, 1.5)

@@ -22,8 +22,10 @@ sharded`` and its batch guard, and ``pod``'s parser and its exits
 commands with ``--device cpu``, and
 ``TestWatchCLI.test_watch_deadline_is_a_clean_exit`` watches a ``serve``
 replica; ``TestServe`` is in tests/test_torch_tooling.py with the other
-store commands.  The ``lint`` cases wait for the port's ``lint`` (ROADMAP
-Queue A).
+store commands.  ``TestLint`` mirrors the reference's ``TestLint``: the
+port's ``lint`` over p1_tpu_torch, its exits 0, 1 and 2, the ``--json``
+report (the reference's keys), ``--rule``, ``--granted`` and ``--path``
+(a path into ``p1_tpu`` is outside the analyzed package, exit 2).
 """
 
 import json
@@ -1350,3 +1352,134 @@ class TestSharded:
                     p.kill()
         assert [p.returncode for p in procs] == [2, 2]
         assert all("pod config mismatch" in e for e in errs)
+
+
+class TestLint:
+    """`lint`: the port's determinism/async-safety analyzer over
+    p1_tpu_torch, with the reference's exit-code contract — 0 = every
+    rule settles clean against the allowlist, 1 = violations or stale
+    grants, 2 = usage — and the reference's JSON report shape."""
+
+    def _lint(self, *argv):
+        return subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "lint", *argv],
+            capture_output=True,
+            text=True,
+            timeout=110,
+            cwd=REPO,
+        )
+
+    def test_help_smoke(self):
+        proc = self._lint("--help")
+        assert proc.returncode == 0
+        assert "--json" in proc.stdout and "--rule" in proc.stdout
+
+    def test_clean_tree_exit_0(self):
+        proc = self._lint()
+        assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+        assert "0 violation(s)" in proc.stdout
+        assert "0 stale grant(s)" in proc.stdout
+        assert "9 rules" in proc.stdout
+
+    def test_json_report_shape(self):
+        proc = self._lint("--json")
+        assert proc.returncode == 0
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert out["clean"] is True
+        assert len(out["rules"]) >= 6
+        assert out["violations"] == [] and out["stale"] == []
+        # granted findings carry the Finding shape the docs promise
+        f = out["granted"][0]
+        assert set(f) == {"file", "line", "rule", "detail", "key"}
+
+    def test_json_report_keys_are_the_references(self):
+        from p1_tpu.analysis.engine import Report as RefReport
+
+        proc = self._lint("--json")
+        assert proc.returncode == 0
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert set(out) == set(RefReport().to_json())
+
+    def test_single_rule_run(self):
+        proc = self._lint("--rule", "wall-clock")
+        assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+        assert "1 rules" in proc.stdout
+
+    def test_unknown_rule_is_usage_error_exit_2(self):
+        proc = self._lint("--rule", "no-such-rule")
+        assert proc.returncode == 2
+        assert "unknown rule" in proc.stderr
+
+    def test_granted_lists_reasons(self):
+        proc = self._lint("--granted", "--path", "node/queryplane.py")
+        assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("granted: ")]
+        assert lines and all(ln.startswith("granted: node/queryplane.py:") for ln in lines)
+        assert all(ln.endswith("]") and "  [" in ln for ln in lines)
+
+    def test_scoped_path_run_exit_0_and_labelled(self):
+        """`lint --path`: scoped pre-commit runs — same exit contract,
+        summary names the scope, settlement still global (the
+        engine-level guarantees live in
+        tests/test_torch_analysis.py::TestScopedRuns)."""
+        proc = self._lint("--path", "node/protocol.py", "--path", "analysis")
+        assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+        assert "scoped to analysis/, node/protocol.py" in proc.stdout
+
+    def test_scoped_json_report_carries_scope_and_callgraph(self):
+        proc = self._lint("--path", "node", "--json")
+        assert proc.returncode == 0
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert out["scoped_to"] == ["node/"]
+        assert out["clean"] is True
+        assert out["callgraph_nodes"] > 0 and out["callgraph_edges"] > 0
+
+    def test_unknown_path_is_usage_error_exit_2(self):
+        proc = self._lint("--path", "no/such/file.py")
+        assert proc.returncode == 2
+        assert "no such path" in proc.stderr
+
+    def test_path_outside_package_is_usage_error_exit_2(self, tmp_path):
+        proc = self._lint("--path", str(tmp_path))
+        assert proc.returncode == 2
+        assert "outside the analyzed package" in proc.stderr
+
+    @pytest.mark.parametrize("path", ["p1_tpu/node", str(REPO / "p1_tpu" / "node" / "node.py")])
+    def test_path_into_the_reference_package_is_usage_error_exit_2(self, path):
+        proc = self._lint("--path", path)
+        assert proc.returncode == 2
+        assert "outside the analyzed package" in proc.stderr
+
+    def test_bad_flag_is_usage_error_exit_2(self):
+        proc = self._lint("--no-such-flag")
+        assert proc.returncode == 2
+
+    def test_violation_and_stale_grant_exit_1(self, tmp_path, monkeypatch, capsys):
+        """The gate's failing direction through the command: a host-clock
+        read dropped into node/ is a violation at its line, and a grant
+        nothing uses is stale; either exits 1."""
+        from p1_tpu_torch import cli
+        from p1_tpu_torch.analysis import allowlist, engine
+
+        root = tmp_path / "pkg"
+        (root / "node").mkdir(parents=True)
+        (root / "node" / "mod.py").write_text("import time\n\n\ndef f():\n    return time.time()\n")
+        real_run = engine.run_analysis
+        monkeypatch.setattr(
+            "p1_tpu_torch.analysis.run_analysis",
+            lambda **kw: real_run(root=root, grants={}, **kw),
+        )
+        assert cli.main(["lint"]) == 1
+        out = capsys.readouterr().out
+        assert "node/mod.py:5: [wall-clock]" in out
+        assert "1 violation(s)" in out
+        stale = {"wall-clock": {"node/mod.py": {"time.time": "r", "time.monotonic": "nothing uses it"}}}
+        monkeypatch.setattr(allowlist, "GRANTS", stale)
+        monkeypatch.setattr(
+            "p1_tpu_torch.analysis.run_analysis",
+            lambda **kw: real_run(root=root, grants=stale, **kw),
+        )
+        assert cli.main(["lint", "--json"]) == 1
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["violations"] == []
+        assert out["stale"] == ["wall-clock: node/mod.py: grant 'time.monotonic' never used"]

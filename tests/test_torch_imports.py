@@ -95,6 +95,22 @@ PORT_MODULES = (
     "p1_tpu_torch.node.chaos",
     "p1_tpu_torch.node.queryplane",
     "p1_tpu_torch.node.provision",
+    "p1_tpu_torch.analysis",
+    "p1_tpu_torch.analysis.findings",
+    "p1_tpu_torch.analysis.base",
+    "p1_tpu_torch.analysis.callgraph",
+    "p1_tpu_torch.analysis.engine",
+    "p1_tpu_torch.analysis.allowlist",
+    "p1_tpu_torch.analysis.rules",
+    "p1_tpu_torch.analysis.rules.awaitstate",
+    "p1_tpu_torch.analysis.rules.blocking",
+    "p1_tpu_torch.analysis.rules.escstate",
+    "p1_tpu_torch.analysis.rules.losttask",
+    "p1_tpu_torch.analysis.rules.rng",
+    "p1_tpu_torch.analysis.rules.setiter",
+    "p1_tpu_torch.analysis.rules.transblock",
+    "p1_tpu_torch.analysis.rules.wallclock",
+    "p1_tpu_torch.analysis.rules.wirecontract",
 )
 
 
@@ -154,6 +170,28 @@ def test_planes_load_no_torch():
         env={**os.environ, "PYTHONPATH": str(PKG.parent)},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_lint_loads_no_torch():
+    """``lint`` is host code that reads the port's sources with ``ast``:
+    a whole run through the command's entry point imports no torch, so it
+    initialises no CUDA and runs the same with or without a card."""
+    code = (
+        "import sys\n"
+        "from p1_tpu_torch import cli\n"
+        "rc = cli.main(['lint'])\n"
+        "sys.exit(rc or (3 if 'torch' in sys.modules else 0))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=PKG.parent,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "0 violation(s)" in proc.stdout
 
 
 def test_no_import_statement_names_jax_or_p1_tpu():

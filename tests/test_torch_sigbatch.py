@@ -7,7 +7,10 @@ tests/test_keys.py: ``p1_tpu_torch.core.keys`` (the ladder, ``STATS``,
 ``chain/validate.py`` (``check_block`` and ``preverify_signatures``: the
 same verdicts and the same error text as ``p1_tpu``'s on blocks built
 from a seed, torsion crafts included), and the untrusted store load that
-streams its signature windows into them (``TestRevalidateEquivalence``).  The port's default rung,
+streams its signature windows into them (``TestRevalidateEquivalence``);
+``TestNoDoubleVerify`` and ``TestNodeValidationStatus`` run the
+reference's cases on the port's pool, chain and node: a transfer verified
+at admission is a cache hit when its block connects.  The port's default rung,
 ``device``, runs here through ``set_sig_backend("device", device="cpu")``
 (the plain PyTorch version), which every test pins unless it asks for
 another rung; asked for the card on a host without one, it raises.
@@ -705,3 +708,125 @@ class TestRevalidateEquivalence:
             ChainStore(path).load_chain(DIFF, trusted=False, sig_cache=SignatureCache())
         assert keys.STATS.backends["pure-python"] == 0
         assert keys.backend() == "device"
+
+
+def _port_chain_block(parent, txs, ts=1) -> Block:
+    """A port block of ``txs`` on ``parent``, sealed by the port's hashlib
+    backend."""
+    from p1_tpu_torch.core import BlockHeader, merkle_root
+    from p1_tpu_torch.hashx import get_backend
+    from p1_tpu_torch.miner import Miner
+
+    header = BlockHeader(1, parent.block_hash(), merkle_root([t.txid() for t in txs]),
+                         parent.header.timestamp + ts, DIFF, 0)  # fmt: skip
+    sealed = Miner(backend=get_backend("cpu", device="cpu")).search_nonce(header)
+    assert sealed is not None
+    return Block(sealed, tuple(txs))
+
+
+def _port_funded_chain():
+    """A port chain whose 'alice' can afford many transfers (mined
+    rewards), as tests/test_sigbatch.py's ``_funded_chain``."""
+    from p1_tpu_torch.chain import AddStatus, Chain
+
+    chain = Chain(DIFF)
+    for h in range(1, 4):
+        blk = _port_chain_block(chain.tip, [Transaction.coinbase(account("alice"), h)])
+        assert chain.add_block(blk).status is AddStatus.ACCEPTED
+    return chain
+
+
+class TestNoDoubleVerify:
+    """The mempool-admission → block-connect double-verify fix, on the
+    port's pool and chain."""
+
+    def test_mempool_then_block_connect_zero_backend_calls(self):
+        from p1_tpu_torch.chain import AddStatus
+        from p1_tpu_torch.mempool import Mempool
+
+        chain = _port_funded_chain()
+        cache = SignatureCache()
+        chain.sig_cache = cache
+        pool = Mempool(
+            balance_of=chain.balance,
+            nonce_of=chain.nonce,
+            chain_tag=chain.genesis.block_hash(),
+            sig_cache=cache,
+        )
+        txs = [Transaction.deserialize(t.serialize()) for t in _transfers(10)]
+        keys.STATS.reset()
+        for tx in txs:
+            assert pool.add(tx)
+        admitted = keys.STATS.serial + keys.STATS.batched
+        assert admitted == len(txs)  # admission paid the backend once each
+        # Mine-time assembly + connect: all signatures cache-hit.
+        block = _port_chain_block(
+            chain.tip,
+            [Transaction.coinbase(account("m"), 4), *pool.select(100)],
+        )
+        keys.STATS.reset()
+        assert chain.add_block(block).status is AddStatus.ACCEPTED
+        assert keys.STATS.serial == 0
+        assert keys.STATS.batched == 0
+        assert cache.hits >= len(txs)
+
+
+class TestNodeValidationStatus:
+    """Node-level acceptance on the port's node: a fully mempool-resident
+    block connects with ZERO backend Ed25519 verifies, and status()
+    exposes the counters."""
+
+    def test_mempool_resident_block_connects_backend_free(self):
+        import asyncio
+
+        from torch_testutil import NodeConfig
+        from torch_testutil import stx as port_stx
+
+        from p1_tpu_torch.chain import AddStatus
+        from p1_tpu_torch.hashx import get_backend
+        from p1_tpu_torch.miner import Miner
+        from p1_tpu_torch.node import Node
+
+        miner = Miner(backend=get_backend("cpu", device="cpu"))
+
+        async def scenario():
+            node = Node(
+                NodeConfig(difficulty=DIFF, mine=False, chunk=1 << 14)
+            )
+            await node.start()
+            try:
+                # Fund alice so her spends are admissible.
+                import time as _time
+
+                node.miner_id = account("alice")
+                node.start_mining()
+                deadline = _time.monotonic() + 20
+                while node.chain.height < 3:
+                    assert _time.monotonic() < deadline
+                    await asyncio.sleep(0.02)
+                await node.stop_mining()
+                for i in range(10):
+                    await node.submit_tx(
+                        port_stx("alice", account("bob"), 1, 1, i, difficulty=DIFF)
+                    )
+                assert len(node.mempool) == 10
+                block = node._assemble()
+                sealed = miner.search_nonce(block.header)
+                block = Block(sealed, block.txs)
+                keys.STATS.reset()
+                hits_before = node.sig_cache.hits
+                res = await node._handle_block(block)
+                assert res.status is AddStatus.ACCEPTED
+                assert keys.STATS.serial == 0  # zero backend verifies
+                assert keys.STATS.batched == 0
+                assert node.sig_cache.hits - hits_before >= 10
+                validation = node.status()["validation"]
+                assert validation["hits"] >= 10
+                assert validation["entries"] >= 10
+                assert {"misses", "batched", "serial", "backend", "workers"} <= set(
+                    validation
+                )
+            finally:
+                await node.stop()
+
+        asyncio.run(asyncio.wait_for(scenario(), timeout=60))
