@@ -9,8 +9,8 @@ chain store, a node and the 4-node net, the native host tier, the
 multi-chip plane (sharded search and MSM, a pod), and the simulation,
 serving and fault planes (``sim``, ``chaos``, ``serve``), on the GPU and
 its host in phases, then runs the port's static analyzer over the
-checkout, one JSON line each, and fails (non-zero exit, no last line) if
-any phase fails:
+checkout, a profiled ``mine`` and the port's ``bench``, one JSON line
+each, and fails (non-zero exit, no last line) if any phase fails:
 
 1. card and build — the card's name and power limit, the kernel built from
    ``p1_tpu_torch/hashx/csrc/sha256d_search.cu`` with ``nvcc`` for
@@ -172,6 +172,20 @@ any phase fails:
    code) must exit 0 with all 9 rules run and no violation, stale grant
    or parse error; it prints the files read, the granted findings and
    its seconds.
+17. profile — ``python -m p1_tpu_torch mine --difficulty 20 --blocks 10
+   --profile DIR`` in a child process: its ``torch.profiler`` Chrome
+   trace must name ``sha256d_search`` with device time > 0, as many of
+   its kernels as the traced run's launches (the child logs them:
+   ``profiled kernel launches``); it prints the card's busy share of the
+   traced window (the union of the kernel intervals over the window),
+   the mining loop's first idle-share figure.
+18. bench — ``python -m p1_tpu_torch bench`` in a child process: one
+   JSON line on stdout that must say ``platform`` and ``backend``
+   ``cuda``, carry ``native_hps`` and ``sig_device_ms``, 0
+   ``lint_findings`` and ``fleet_missed``, and true ``sim_ok``,
+   ``sim_sharded_ok`` and ``relay_ok``; the child's launches of both
+   kernels (``kernel launches:`` on its stderr) must be > 0; it prints
+   the headline and every ``*_vs_recorded`` ratio.
 
 Every ``bound_ms`` of the ``kernels`` line is taken at the card's peak
 integer rate: the larger of the white paper's rate and the one phase 5
@@ -191,7 +205,8 @@ launches ride beside the search and verify kernels' totals
 (``launches_native_replay``); phase 14's sharded mining and pod
 processes add to ``sha256d_search``'s (``launches_multichip``,
 ``launches_pod``), its sharded MSM to ``ed25519_msm``'s, and phase 15's
-card meshes to both (``launches_planes``).
+card meshes to both (``launches_planes``), phases 17 and 18's children too
+(``launches_profile``, ``launches_bench``).
 """
 
 from __future__ import annotations
@@ -2189,6 +2204,114 @@ def phase_lint() -> dict:
     return line
 
 
+# -- phases 17 and 18: a profiled ``mine``, and ``bench`` -----------------------
+
+PROFILE_ARGS = ("--difficulty", str(DIFFICULTY), "--blocks", str(BLOCKS))
+BENCH_TIMEOUT_S = 600  # ~80 s on the card's host (PERF.md §6)
+
+
+def marked_json(text: str, marker: str) -> dict:
+    """The JSON object after the last ``marker`` in a child's stderr."""
+    lines = [line.split(marker, 1)[1] for line in text.splitlines() if marker in line]
+    if not lines:
+        raise AssertionError(f"no {marker!r} line in the child's stderr: {text[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def trace_kernels(trace: dict, kernel: str) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the device kernels whose
+    name contains ``kernel`` (count, µs), every kernel's µs, the traced
+    window (first event's start to last event's end, µs) and the card's
+    busy share of it (the union of all kernel intervals over the window)."""
+    events = [e for e in trace.get("traceEvents", ()) if isinstance(e, dict) and e.get("ph") == "X"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    named = [e for e in kernels if kernel in e.get("name", "")]
+    busy, end = 0.0, float("-inf")
+    for e in kernels:
+        start, stop = e["ts"], e["ts"] + e.get("dur", 0)
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    window = max((e["ts"] + e.get("dur", 0) for e in events), default=0) - min((e["ts"] for e in events), default=0)
+    return {"kernels": len(named), "kernel_us": sum(e.get("dur", 0) for e in named),
+            "all_kernels": len(kernels), "all_kernel_us": busy, "window_us": window,
+            "busy_share": busy / window if window > 0 else 0.0}  # fmt: skip
+
+
+def profile_line(report: dict, trace: dict, launches: dict, out_dir: str, device: str = "cuda") -> dict:
+    """Phase 17's verdict: the trace must name ``sha256d_search`` with
+    device time > 0 and as many of its kernels as the traced run's
+    launches (on the host: none of either), and ``mine`` must report the
+    directory; an ``AssertionError`` otherwise."""
+    seen = trace_kernels(trace, "sha256d_search")
+    want = launches.get("sha256d_search", 0)
+    if report.get("profile_dir") != out_dir:
+        raise AssertionError(f"mine reported profile_dir {report.get('profile_dir')!r}, not {out_dir!r}")
+    if seen["kernels"] != want or (device == "cuda" and (want <= 0 or seen["kernel_us"] <= 0)):
+        raise AssertionError(f"trace holds {seen['kernels']} sha256d_search kernels, "
+                             f"{seen['kernel_us']} us, against {want} launches")  # fmt: skip
+    return {"phase": "profile", "blocks": report["blocks"], "time_to_block_s": report["time_to_block_s"],
+            "launches": launches, **seen}  # fmt: skip
+
+
+def phase_profile(device: str = "cuda") -> dict:
+    """Phase 17: ``mine --profile`` at difficulty 20 in a child process,
+    held to ``profile_line``; prints the card's busy share of the window."""
+    with tempfile.TemporaryDirectory(prefix="p1profile") as out_dir:
+        proc = subprocess.run([sys.executable, "-m", "p1_tpu_torch", "mine", *PROFILE_ARGS, "--device", device,
+                               "--profile", out_dir], cwd=ROOT, capture_output=True, text=True,
+                              timeout=CHILD_TIMEOUT_S)  # fmt: skip
+        if proc.returncode != 0:
+            raise AssertionError(f"mine --profile exit {proc.returncode}: {proc.stderr[-2000:]}")
+        from p1_tpu_torch.cli import PROFILE_TRACE
+
+        trace = json.loads((pathlib.Path(out_dir) / PROFILE_TRACE).read_text())
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        launches = marked_json(proc.stderr, "profiled kernel launches: ")
+        line = profile_line(report, trace, launches, out_dir, device)
+    emit(line)
+    return line
+
+
+def bench_verdict(line: dict, launches: dict, device: str = "cuda") -> dict:
+    """Phase 18's verdict on ``bench``'s one line: the card's platform and
+    backend (``torch`` on the host), ``native_hps`` and (on the card)
+    ``sig_device_ms`` present, no lint finding, every simulated mesh and
+    the relay budget ok, no fleet confirmation missed, and (on the card)
+    both kernels launched; an ``AssertionError`` otherwise."""
+    faults = []
+    if line.get("platform") != device or line.get("backend") != ("cuda" if device == "cuda" else "torch"):
+        faults.append(f"platform {line.get('platform')!r}, backend {line.get('backend')!r}")
+    need = ("native_hps", "sig_device_ms") if device == "cuda" else ("native_hps",)
+    faults += [f"{key} missing" for key in need if key not in line]
+    faults += [f"{key} {line.get(key)!r}" for key in ("lint_findings", "fleet_missed") if line.get(key) != 0]
+    faults += [f"{key} {line.get(key)!r}" for key in ("sim_ok", "sim_sharded_ok", "relay_ok") if line.get(key) is not True]
+    if device == "cuda":
+        faults += [f"{k} launched {launches.get(k, 0)} times" for k in ("sha256d_search", "ed25519_msm") if launches.get(k, 0) <= 0]
+    if faults:
+        raise AssertionError(f"bench: {'; '.join(faults)}")
+    return {"phase": "bench", "value": line["value"], "unit": line["unit"], "vs_baseline": line["vs_baseline"],
+            "time_to_block_d20_s": line["time_to_block_d20_s"], "launches": launches,
+            "vs_recorded": {k: v for k, v in line.items() if k.endswith("_vs_recorded")},
+            "degraded": sorted(k for k in line if k.endswith("_degraded"))}  # fmt: skip
+
+
+def phase_bench(device: str = "cuda") -> dict:
+    """Phase 18: ``python -m p1_tpu_torch bench`` in a child process; its
+    stdout must be one JSON line, held to ``bench_verdict``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "p1_tpu_torch", "bench", "--device", device], cwd=ROOT,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)  # fmt: skip
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench exit {proc.returncode}, {len(lines)} stdout lines: {proc.stderr[-2000:]}")
+    line = json.loads(lines[0])
+    result = {**bench_verdict(line, marked_json(proc.stderr, "kernel launches: "), device), "seconds": seconds,
+              "line": line}  # fmt: skip
+    emit(result)
+    return result
+
+
 def ed25519_work(points: int, per_op: dict) -> tuple[int, int]:
     """(ALU, FMA) instructions of the reference's operations on ``points``
     points and one batch, at ``per_op``'s (ALU, FMA) cost per operation."""
@@ -2409,6 +2532,17 @@ def main() -> int:
     # -- 16. the port's static analyzer over this checkout --------------------
     phase_lint()
 
+    # -- 17-18. a profiled ``mine``, and ``bench``, in processes of their own ----
+    profile = phase_profile()
+    bench = phase_bench()
+
+    def child_counts(name: str) -> dict:
+        return {"launches_profile": profile["launches"].get(name, 0), "launches_bench": bench["launches"].get(name, 0)}
+
+    search_counts = child_counts("sha256d_search")
+    ed25519.update(child_counts("ed25519_msm"))
+    ed25519["launches"] += ed25519["launches_profile"] + ed25519["launches_bench"]
+
     # -- every process this run started has ended --------------------------
     stop_resource_tracker()
     if left := stop_children():
@@ -2420,7 +2554,7 @@ def main() -> int:
             "source": "p1_tpu_torch/hashx/csrc/sha256d_search.cu",
             "replaces": "p1_tpu/hashx/pallas_backend.py:67",
             "launches": launches + search_node + search_net + mesh_launches["sha256d_search"]
-            + plane_launches["sha256d_search"], "max_abs_err": max_err,
+            + plane_launches["sha256d_search"] + sum(search_counts.values()), "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "library_ms": None,
             "bound_ms_white_paper": bound_wp_ms, "bound_ms_measured_rate": bound_measured_ms,
@@ -2430,6 +2564,7 @@ def main() -> int:
             "launches_multichip": mesh_launches["sha256d_search_mine"],
             "launches_pod": mesh_launches["sha256d_search_pod"],
             "launches_planes": plane_launches["sha256d_search"],
+            **search_counts,
         },
         roof,
         verify,

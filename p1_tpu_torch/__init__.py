@@ -36,10 +36,16 @@ state and its stores, and the integer-ALU roofline:
 - ``p1_tpu_torch.benchmarks`` — the integer-ALU roofline
   (``benchmarks/csrc/int_roofline.cu``), ``verify_chain``'s device time,
   the signature-verification bench (``sig_verify``, store revalidation
-  included) and the signed test chains it loads (``host_ingest``).
+  included), and the planes ``bench`` reads: host ingest, telemetry
+  overhead, the query and wallet planes, the simulator's scale, the chaos
+  rate, snapshot boot, the archive and the maintenance cadence; beside
+  them the ledger-scale and memory-bound harnesses.
+- ``p1_tpu_torch.bench``  — the headline benchmark: hashes/s per card,
+  time to a block, every plane against its pin (``hashx/perf_record``).
 - ``p1_tpu_torch.cli``    — ``python -m p1_tpu_torch
   mine|sweep|replay|keygen|balances|compact|fsck|snapshot``, the node
-  and client commands, ``pod``, and ``sim|chaos|serve``.
+  and client commands, ``pod``, ``sim|chaos|serve``, ``lint`` and
+  ``bench``; ``mine --profile`` traces the mining loop.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``); without a card they raise.

@@ -2,6 +2,7 @@
 
     python -m p1_tpu_torch.benchmarks.sig_verify [--batch-sizes 64 256 1024 4096]
         [--device-batch 1024] [--device cpu] [--store-blocks N] [--against CHECKOUT]
+    python -m p1_tpu_torch.benchmarks.sig_verify --fallback [--device-batch 1024]
 
 The port of ``benchmarks/sig_verify.py``.  ``bench_micro`` times the rungs
 the port has (``core/keys.py``): serial verifies (the native rung where it
@@ -25,6 +26,13 @@ PyTorch version and has no device rows.  (``--device`` alone, or
 rung, one verify per transfer), on the active batch rung, with the cache
 warm, and trusted.  Prints one JSON line, then (on the card) the card's
 name and power limit.
+
+``--fallback`` times only the pure-Python rung (``bench_fallback``): ms
+per signature serially and in one ``--device-batch`` batch, the figures
+``core/keys.py``'s forced-fallback warning names
+(``_ed25519.RECORDED_SERIAL_MS`` / ``RECORDED_BATCH_MS``), and
+``bench``'s 400-block revalidation with batches forced onto it
+(``perf_record.RECORDED_REVALIDATE_FALLBACK_BPS``); it needs no card.
 
 With ``--against``, the checkout at CHECKOUT (a directory that holds
 ``p1_tpu_torch``, e.g. ``git archive <commit> | tar -x -C build/parent``)
@@ -327,6 +335,30 @@ def bench_revalidate(n_blocks: int, repeats: int = 3) -> dict:
     return out
 
 
+def bench_fallback(batch: int = 1024, serial_n: int = 16, store_blocks: int = 400) -> dict:
+    """The pure-Python rung on this host: ms per signature of serial
+    verifies and of one ``_ed25519.verify_batch`` of ``batch`` (the
+    figures ``core/keys.py``'s forced-fallback warning names), and
+    ``bench_revalidate(store_blocks)``'s blocks/s with batches forced onto
+    it (``set_sig_backend("fallback")``; restored after)."""
+    from p1_tpu_torch.core import _ed25519, keys
+
+    triples = make_triples(batch)
+    serial = triples[:serial_n]
+    serial_ms = 1e3 / _rate(lambda: all(_ed25519.verify(*t) for t in serial), len(serial))
+    if not _ed25519.verify_batch(triples):
+        raise AssertionError("a valid batch failed on the pure-Python rung")
+    batch_ms = 1e3 / _rate(lambda: _ed25519.verify_batch(triples), batch)
+    saved = (keys._sig_backend, keys._sig_device)
+    keys.set_sig_backend("fallback")
+    try:
+        reval = bench_revalidate(store_blocks)
+    finally:
+        keys.set_sig_backend(saved[0], device=saved[1] if saved[0] in (None, "device") else None)
+    return {"fallback_batch": batch, "fallback_serial_ms": serial_ms, f"fallback_batch{batch}_ms": batch_ms,
+            "revalidate_fallback_bps": reval["revalidate_bps"], "revalidate_fallback_blocks": store_blocks}  # fmt: skip
+
+
 def kernel_launch(triples):
     """One launch of the kernels of the package on the path, on the batch
     ``prepare`` makes of ``triples`` (seeded coefficients), with its
@@ -396,6 +428,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="also build an N-block store (2 signed transfers a block) and time its "
                     "revalidation serial vs batch vs cached, and its trusted resume")  # fmt: skip
     ap.add_argument("--against", type=pathlib.Path, help="another checkout of the port, timed in turns")
+    ap.add_argument("--fallback", action="store_true",
+                    help="only the pure-Python rung: serial and batched ms per signature, and "
+                    "bench's revalidation (400 blocks) with batches forced onto it")  # fmt: skip
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -407,6 +442,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     from p1_tpu_torch.core import keys
 
+    if args.fallback:
+        print(json.dumps({**bench_fallback(args.device_batch), "cpu_count": os.cpu_count()}), flush=True)
+        return 0
     keys.set_sig_backend("device", device=args.device)
     result = bench_micro(tuple(args.batch_sizes))
     result.update(bench_native(args.device_batch, device=args.device))

@@ -168,6 +168,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--chunk", type=int, default=None, help="miner abort granularity")
     p.add_argument("--blocks", type=int, default=10)
+    p.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="capture a torch.profiler trace of the mining loop (the card's "
+        "kernels and the host) into DIR/mine_trace.json, after one warm-up "
+        "block (open it in Perfetto or chrome://tracing)",
+    )
 
     p = sub.add_parser(
         "sweep", help="difficulty sweep: time-to-block scaling (config 2)"
@@ -1000,6 +1008,14 @@ def build_parser() -> argparse.ArgumentParser:
         "plain PyTorch signature rung); the trace digest is the same",
     )
 
+    p = sub.add_parser("bench", help="headline benchmark (one JSON line)")
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="cuda (default): the kernels on the card; cpu: their plain PyTorch versions",
+    )
+
     p = sub.add_parser(
         "lint",
         help="determinism/async-safety static analysis over p1_tpu_torch "
@@ -1073,7 +1089,9 @@ def mine_chain(miner, difficulty: int, blocks: int):
     return headers, times, hashes
 
 
-def mine_report(backend: str, difficulty: int, times: list[float], hashes: int) -> dict:
+def mine_report(
+    backend: str, difficulty: int, times: list[float], hashes: int, profile_dir: str | None = None
+) -> dict:
     """The ``cmd_mine`` JSON object of ``p1_tpu``, key for key."""
     total = sum(times)
     return {
@@ -1084,7 +1102,40 @@ def mine_report(backend: str, difficulty: int, times: list[float], hashes: int) 
         "hashes_per_sec": round(hashes / total) if total else 0,
         "time_to_block_s": round(statistics.median(times), 4),
         "total_s": round(total, 3),
+        **({"profile_dir": profile_dir} if profile_dir else {}),
     }
+
+
+#: The Chrome trace ``mine --profile DIR`` writes into DIR.
+PROFILE_TRACE = "mine_trace.json"
+
+
+def profile_mining(miner, difficulty: int, blocks: int, out_dir: str, device: str):
+    """``mine_chain`` under ``torch.profiler`` (the card's kernels and the
+    host, or the host alone for ``device="cpu"``), after one warm-up block
+    so the trace shows steady-state steps, not the kernel's first build
+    and load; the Chrome trace goes to ``out_dir/PROFILE_TRACE``.  Returns
+    ``mine_chain``'s result and each kernel wrapper's launches inside the
+    traced window."""
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from p1_tpu_torch.node.runner import kernel_launches
+
+    mine_chain(miner, difficulty, 1)
+    activities = [ProfilerActivity.CPU]
+    if device != "cpu":
+        activities.append(ProfilerActivity.CUDA)
+    before = kernel_launches()
+    logging.info("profiling mining loop into %s", out_dir)
+    with profile(activities=activities) as prof:
+        result = mine_chain(miner, difficulty, blocks)
+    launches = {k: n - before.get(k, 0) for k, n in kernel_launches().items()}
+    path = pathlib.Path(out_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path / PROFILE_TRACE))
+    return result, launches
 
 
 def cmd_mine(args) -> int:
@@ -1094,8 +1145,14 @@ def cmd_mine(args) -> int:
     kwargs = {"batch": args.batch} if args.batch else {}
     backend = get_backend(args.backend, device=args.device, **kwargs)
     miner = Miner(backend=backend, chunk=args.chunk)
-    _, times, hashes = mine_chain(miner, args.difficulty, args.blocks)
-    print(json.dumps(mine_report(args.backend, args.difficulty, times, hashes)))
+    if args.profile:
+        (_, times, hashes), launches = profile_mining(
+            miner, args.difficulty, args.blocks, args.profile, args.device
+        )
+        logging.info("profiled kernel launches: %s", json.dumps(launches))
+    else:
+        _, times, hashes = mine_chain(miner, args.difficulty, args.blocks)
+    print(json.dumps(mine_report(args.backend, args.difficulty, times, hashes, args.profile)))
     return 0
 
 
@@ -2443,6 +2500,12 @@ def cmd_lint(args) -> int:
     return 0 if report.clean else 1
 
 
+def cmd_bench(args) -> int:
+    from p1_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -2475,6 +2538,7 @@ def main(argv=None) -> int:
         "sim": cmd_sim,
         "chaos": cmd_chaos,
         "lint": cmd_lint,
+        "bench": cmd_bench,
     }[args.cmd]
     return handler(args)
 

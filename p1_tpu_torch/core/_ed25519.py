@@ -1,7 +1,7 @@
 """Pure-Python RFC 8032 Ed25519: the big-integer oracle and the host rung.
 
 The port's copy of ``p1_tpu/core/_ed25519.py``, as it is but for the
-recorded host timings, which are not the port's.  A direct transcription
+recorded host timings, which are the port's own (``RECORDED_*`` below).  A direct transcription
 of RFC 8032 §5.1 (edwards25519, SHA-512, cofactored equation checked in
 the cofactorless form ``[S]B = R + [k]A`` that both OpenSSL and the RFC
 test vectors accept), producing byte-identical keys and signatures to
@@ -53,6 +53,15 @@ from __future__ import annotations
 import functools
 import hashlib
 import secrets
+
+#: Pure-Python verify costs, ms per signature: serial (best of 3 over 16),
+#: and in one 1,024 ``verify_batch`` (``python -m
+#: p1_tpu_torch.benchmarks.sig_verify --fallback``), measured on the
+#: card's host (NVIDIA H100 80GB HBM3, 700.00 W) — what keys.py's one-time
+#: forced-fallback warning names, so numbers taken on this rung are never
+#: read as regressions.
+RECORDED_SERIAL_MS = 3.81
+RECORDED_BATCH_MS = 2.05
 
 _P = 2**255 - 19  # field prime
 _Q = 2**252 + 27742317777372353535851937790883648493  # group order

@@ -445,18 +445,26 @@ def _batch_worker():
 
 def _warn_fallback_once() -> None:
     """One-time cost-model warning when batches run on the pure-Python
-    rung (only ever forced in the port), naming the rung that would be
-    faster."""
+    rung (only ever forced in the port), naming its measured cost and the
+    rungs that would be faster, so numbers taken on it are never read as
+    regressions."""
     global _fallback_warned
     if _fallback_warned:
         return
     _fallback_warned = True
+    from p1_tpu_torch.hashx.perf_record import RECORDED_SIG_NATIVE_MS
+
     log.warning(
         "pure-Python Ed25519 fallback was FORCED via set_sig_backend/"
-        "P1_SIG_BACKEND for batch verification: every batch is a "
-        "Python-integer multi-scalar multiplication.  The 'device' rung "
-        "(the default) runs batches on the card and the 'native' rung on "
-        "the C++ host engine; the 'cryptography' rung is not in the port."
+        "P1_SIG_BACKEND for batch verification: ~%.1f ms/signature serial, "
+        "~%.2f ms batched (recorded on the card's host), against ~%.3f "
+        "ms/signature for a 1,024 batch on the 'native' rung, the C++ host "
+        "engine (recorded).  The 'device' rung (the default) runs batches "
+        "on the card; the 'cryptography' rung is not in the port.  Numbers "
+        "measured on this rung are NOT comparable to the records in PERF.md.",
+        _py_ed25519.RECORDED_SERIAL_MS,
+        _py_ed25519.RECORDED_BATCH_MS,
+        RECORDED_SIG_NATIVE_MS,
     )
 
 

@@ -21,6 +21,12 @@ def _load_cuda():
     return cuda_backend.CudaBackend
 
 
+def _load_torch():
+    from p1_tpu_torch.hashx import torch_backend
+
+    return torch_backend.TorchBackend
+
+
 def _load_sharded():
     from p1_tpu_torch.hashx import sharded
 
@@ -34,6 +40,7 @@ def _load_native():
 
 
 _register_lazy("cuda", _load_cuda)
+_register_lazy("torch", _load_torch)
 _register_lazy("sharded", _load_sharded)
 _register_lazy("native", _load_native)
 

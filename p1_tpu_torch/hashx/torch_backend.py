@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from p1_tpu_torch.core.header import target_from_difficulty, target_to_words
-from p1_tpu_torch.hashx.backend import SearchResult
+from p1_tpu_torch.hashx.backend import HashBackend, SearchResult, register
 from p1_tpu_torch.hashx.sha256_ref import header_midstate, header_tail_words, sha256d
+from p1_tpu_torch.hashx.torch_sha256 import search_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,3 +160,38 @@ class PipelinedSearchMixin:
             nonce = base + offset
             return SearchResult(nonce, nonce - nonce_start + 1)
         return None
+
+
+#: Lanes per step of the ``torch`` backend: int64 lanes of the plain
+#: version hold ~GBs live at 2**24, so the card's steps stay below that.
+_PLAIN_BATCH = {"cuda": 1 << 22, "cpu": 1 << 12}
+
+
+@register("torch")
+class TorchBackend(PipelinedSearchMixin, HashBackend):
+    """The search step's plain PyTorch version (``torch_sha256.search_step``)
+    behind the pipelined host loop: the counterpart of the reference's
+    ``jax`` backend (its pure-XLA formulation beside the Pallas kernel),
+    and what ``bench`` times as ``torch_hps`` beside the kernel on the
+    card.  ``device="cuda"`` (the default) raises without a card."""
+
+    def __init__(self, batch: int | None = None, device: str = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type not in _PLAIN_BATCH:
+            raise ValueError(f"device must be cuda or cpu, got {device!r}")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "the torch backend on device='cuda' needs a CUDA device and none "
+                "is available; pass device='cpu'"
+            )
+        self.batch = batch if batch is not None else _PLAIN_BATCH[self.device.type]
+        if not 0 < self.batch < 1 << 31:
+            raise ValueError(f"batch {self.batch} must be in (0, 2**31)")
+        self.step_span = self.batch
+
+    def _make_step(self, span: int) -> StepFn:
+        def step(arrays: SearchArrays, nonce_base: int) -> torch.Tensor:
+            idx = search_step(arrays.midstate, arrays.tail, arrays.target, nonce_base, span)
+            return idx.to(torch.int32).reshape(1)
+
+        return step

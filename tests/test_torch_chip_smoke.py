@@ -184,3 +184,98 @@ def test_phase_lint_fails_on_a_dirty_report(returncode, change):
                                                   "seconds": 1.5}  # fmt: skip
     with pytest.raises(AssertionError):
         cs.lint_line(returncode, {**_CLEAN_LINT, **change}, 1.5)
+
+
+def _trace(*kernels, cpu=((0, 1000),)):
+    """A Chrome trace of CPU ops ``cpu`` and device kernels ``kernels``
+    ((name, start µs, duration µs))."""
+    events = [{"ph": "X", "cat": "cpu_op", "name": "op", "ts": t, "dur": d} for t, d in cpu]
+    events += [{"ph": "X", "cat": "kernel", "name": n, "ts": t, "dur": d} for n, t, d in kernels]
+    return {"traceEvents": [*events, {"ph": "i", "name": "marker"}]}
+
+
+def test_trace_kernels_busy_share_is_the_union_over_the_window():
+    cs = _smoke()
+    trace = _trace(("sha256d_search_kernel", 100, 200), ("fill", 250, 100), ("sha256d_search_kernel", 600, 100))
+    got = cs.trace_kernels(trace, "sha256d_search")
+    assert got["kernels"] == 2 and got["kernel_us"] == 300 and got["all_kernels"] == 3
+    assert got["all_kernel_us"] == 350 and got["window_us"] == 1000 and got["busy_share"] == 0.35
+
+
+@pytest.mark.parametrize(
+    "kernels,launches,out_dir",
+    [
+        ((("sha256d_search_kernel", 10, 5),), {"sha256d_search": 2}, "d"),  # a launch the trace lacks
+        ((("sha256d_search_kernel", 10, 0), ("sha256d_search_kernel", 20, 0)), {"sha256d_search": 2}, "d"),
+        ((), {"sha256d_search": 0}, "d"),  # the card's run launched nothing
+        ((("sha256d_search_kernel", 10, 5),), {"sha256d_search": 1}, "elsewhere"),
+    ],
+    ids=["count", "no-device-time", "no-launch", "profile-dir"],
+)
+def test_phase_profile_fails_on_a_wrong_trace(kernels, launches, out_dir):
+    cs = _smoke()
+    report = {"profile_dir": "d", "blocks": 10, "time_to_block_s": 0.001}
+    good = cs.profile_line(report, _trace(("sha256d_search_kernel", 10, 5)), {"sha256d_search": 1}, "d")
+    assert good["phase"] == "profile" and good["kernels"] == 1 and good["launches"] == {"sha256d_search": 1}
+    with pytest.raises(AssertionError):
+        cs.profile_line(report, _trace(*kernels), launches, out_dir)
+
+
+def test_phase_profile_rehearsed_on_the_host():
+    """Phase 17 on the CPU: ``mine --profile`` of the plain version in a
+    child process, a trace with no kernel and no launch, nothing left."""
+    out = run("""
+        import json
+        import chip_smoke as cs
+
+        cs.adopt_orphans()
+        cs.PROFILE_ARGS = ("--difficulty", "8", "--blocks", "2")
+        line = cs.phase_profile(device="cpu")
+        print(json.dumps({**line, "left": cs.stop_children()}))
+    """)
+    assert out["phase"] == "profile" and out["blocks"] == 2 and out["kernels"] == 0
+    assert out["launches"] == {"sha256d_search": 0} and out["window_us"] > 0 and out["left"] == []
+
+
+_CARD_BENCH = {"platform": "cuda", "backend": "cuda", "value": 6.6e9, "unit": "H/s", "vs_baseline": 9000.0,
+               "time_to_block_d20_s": 0.001, "native_hps": 6.6e6, "sig_device_ms": 0.01, "lint_findings": 0,
+               "fleet_missed": 0, "sim_ok": True, "sim_sharded_ok": True, "relay_ok": True,
+               "sim_vs_recorded": 1.02, "notify_degraded": True}  # fmt: skip
+_LAUNCHED = {"sha256d_search": 40, "ed25519_msm": 9}
+
+
+@pytest.mark.parametrize(
+    "change,launches",
+    [
+        ({"platform": "cpu"}, _LAUNCHED),
+        ({"backend": "torch"}, _LAUNCHED),
+        ({"native_hps": None}, _LAUNCHED),
+        ({"sig_device_ms": None}, _LAUNCHED),
+        ({"lint_findings": 2}, _LAUNCHED),
+        ({"fleet_missed": 1}, _LAUNCHED),
+        ({"sim_ok": False}, _LAUNCHED),
+        ({"sim_sharded_ok": False}, _LAUNCHED),
+        ({"relay_ok": False}, _LAUNCHED),
+        ({}, {"sha256d_search": 40, "ed25519_msm": 0}),
+        ({}, {"ed25519_msm": 9}),
+    ],
+    ids=["platform", "backend", "native", "sig-device", "lint", "fleet", "sim", "far-field", "relay",
+         "no-msm-launch", "no-search-launch"],  # fmt: skip
+)
+def test_phase_bench_fails_on_a_bad_line(change, launches):
+    cs = _smoke()
+    good = cs.bench_verdict(_CARD_BENCH, _LAUNCHED)
+    assert good["vs_recorded"] == {"sim_vs_recorded": 1.02} and good["degraded"] == ["notify_degraded"]
+    assert good["launches"] == _LAUNCHED
+    line = {k: v for k, v in {**_CARD_BENCH, **change}.items() if v is not None}
+    with pytest.raises(AssertionError):
+        cs.bench_verdict(line, launches)
+
+
+def test_phase_bench_verdict_on_the_host():
+    """On the CPU the line names ``cpu`` and the ``torch`` backend, has no
+    card rung, and launches nothing."""
+    cs = _smoke()
+    line = {**_CARD_BENCH, "platform": "cpu", "backend": "torch"}
+    del line["sig_device_ms"]
+    assert cs.bench_verdict(line, {"sha256d_search": 0}, device="cpu")["phase"] == "bench"

@@ -14,7 +14,9 @@ cpu`` a node or net exits non-zero, and ``--verify-workers`` is reported.
 ``TestNativeTier`` runs the native host tier's commands: ``replay
 --method native|all``, ``mine --backend native|numpy`` and a node with
 ``--sig-backend native`` admitting a wallet's transfer on that rung.
-``TestSharded`` runs BASELINE config 5's commands: ``mine --backend
+``TestCli`` mirrors ``mine --profile`` (a ``torch.profiler`` Chrome
+trace; ``bench`` is tests/test_torch_bench.py's).  ``TestSharded`` runs
+BASELINE config 5's commands: ``mine --backend
 sharded`` and its batch guard, and ``pod``'s parser and its exits
 (tests/test_torch_pod.py drives whole pods).
 
@@ -52,7 +54,32 @@ def _run(*argv, timeout=110):
 
 
 class TestCli:
+    def test_mine_profile_writes_trace(self, tmp_path):
+        out = _run(
+            "mine", "--difficulty", "8", "--blocks", "1", "--backend", "cpu", "--device", "cpu",
+            "--profile", str(tmp_path / "trace"),
+        )  # fmt: skip
+        assert out["profile_dir"] == str(tmp_path / "trace")
+        files = list((tmp_path / "trace").rglob("*"))
+        assert any(f.is_file() for f in files), "no trace files written"
 
+    def test_mine_profile_traces_the_plain_search(self, tmp_path):
+        """``--backend cuda --device cpu``: the trace is torch.profiler's
+        Chrome trace of the traced blocks (the plain version's ops, no
+        kernel), and the run logs the search kernel's launches inside it."""
+        proc = subprocess.run(
+            [sys.executable, "-m", "p1_tpu_torch", "mine", "--difficulty", "8", "--blocks", "2", "--device", "cpu",
+             "--profile", str(tmp_path / "trace")],
+            capture_output=True, text=True, timeout=110, cwd=REPO,
+        )  # fmt: skip
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert out["blocks"] == 2 and out["profile_dir"] == str(tmp_path / "trace")
+        trace = json.loads((tmp_path / "trace" / "mine_trace.json").read_text())
+        events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+        assert any(e.get("cat") == "cpu_op" for e in events)
+        assert not [e for e in events if e.get("cat") == "kernel"]
+        assert 'profiled kernel launches: {"sha256d_search": 0}' in proc.stderr
 
     def test_net_config4_smoke(self):
         out = _run(

@@ -95,7 +95,10 @@ class TestOracleCopy:
 
     def test_constants_equal(self):
         assert (py_ed._P, py_ed._Q, py_ed._D, py_ed._B) == (ref_ed._P, ref_ed._Q, ref_ed._D, ref_ed._B)
-        assert not hasattr(py_ed, "RECORDED_SERIAL_MS")
+        # The recorded pure-Python costs are the port's own (the card's
+        # host's, named by keys.py's fallback warning), never the reference's.
+        mine = (py_ed.RECORDED_SERIAL_MS, py_ed.RECORDED_BATCH_MS)
+        assert min(mine) > 0 and mine != (ref_ed.RECORDED_SERIAL_MS, ref_ed.RECORDED_BATCH_MS)
 
     def test_small_order_points(self):
         for pt, order in ((T2, 2), (T4, 4), (T8, 8)):

@@ -111,6 +111,20 @@ PORT_MODULES = (
     "p1_tpu_torch.analysis.rules.transblock",
     "p1_tpu_torch.analysis.rules.wallclock",
     "p1_tpu_torch.analysis.rules.wirecontract",
+    "p1_tpu_torch.bench",
+    "p1_tpu_torch.hashx.perf_record",
+    "p1_tpu_torch.hashx.torch_backend",
+    "p1_tpu_torch.benchmarks.rss",
+    "p1_tpu_torch.benchmarks.telemetry_overhead",
+    "p1_tpu_torch.benchmarks.query_plane",
+    "p1_tpu_torch.benchmarks.wallet_plane",
+    "p1_tpu_torch.benchmarks.netsim_scale",
+    "p1_tpu_torch.benchmarks.chaos_rate",
+    "p1_tpu_torch.benchmarks.snapshot_boot",
+    "p1_tpu_torch.benchmarks.archive_scale",
+    "p1_tpu_torch.benchmarks.maintenance_cadence",
+    "p1_tpu_torch.benchmarks.ledger_scale",
+    "p1_tpu_torch.benchmarks.memory_bound",
 )
 
 
@@ -159,6 +173,34 @@ def test_planes_load_no_torch():
         "import p1_tpu_torch.cli, p1_tpu_torch.node.queryplane, p1_tpu_torch.node.provision\n"
         "import p1_tpu_torch.node.farfield, p1_tpu_torch.node.netsim\n"
         "import p1_tpu_torch.node.scenarios, p1_tpu_torch.node.chaos\n"
+        "sys.exit(1 if 'torch' in sys.modules else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=PKG.parent,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_host_harness_children_load_no_torch():
+    """The processes whose peak resident set is the figure measured —
+    ``archive_scale --phase boot`` and ``memory_bound --measure`` — start
+    from modules whose import loads no torch, nor do ``bench``'s plane
+    modules or ``perf_record`` (``bench`` itself imports torch only when
+    it measures)."""
+    code = (
+        "import sys\n"
+        "import p1_tpu_torch.benchmarks.archive_scale, p1_tpu_torch.benchmarks.memory_bound\n"
+        "import p1_tpu_torch.benchmarks.rss, p1_tpu_torch.hashx.perf_record, p1_tpu_torch.bench\n"
+        "import p1_tpu_torch.benchmarks.maintenance_cadence, p1_tpu_torch.benchmarks.ledger_scale\n"
+        "import p1_tpu_torch.benchmarks.query_plane, p1_tpu_torch.benchmarks.wallet_plane\n"
+        "import p1_tpu_torch.benchmarks.netsim_scale, p1_tpu_torch.benchmarks.chaos_rate\n"
+        "import p1_tpu_torch.benchmarks.snapshot_boot, p1_tpu_torch.benchmarks.telemetry_overhead\n"
+        "import p1_tpu_torch.chain.headerplane, p1_tpu_torch.chain.store\n"
         "sys.exit(1 if 'torch' in sys.modules else 0)\n"
     )
     proc = subprocess.run(

@@ -2,10 +2,10 @@
 incremental snapshots, online prune/compact while serving, and
 version-bits protocol evolution.
 
-Mirrors tests/test_maintenance.py against ``p1_tpu_torch``: every class
-but ``TestCadenceBench``, which holds ``benchmarks/maintenance_cadence.py``
-to the pins of ``hashx/perf_record.py``; the port has neither yet (ROADMAP
-Queue A item 11), and its mirror lands with them.  Blocks are sealed by
+Mirrors tests/test_maintenance.py against ``p1_tpu_torch``, every class,
+``TestCadenceBench`` holding the port's
+``benchmarks/maintenance_cadence.py`` to the port's pins
+(``hashx/perf_record.py``).  Blocks are sealed by
 the hashlib backend (``get_backend("cpu", device="cpu")``) and nodes run
 on the host (``tests/test_torch_node.py``'s ``_config``).
 
@@ -880,6 +880,42 @@ class TestMaintainWire:
                 await node.stop()
 
         run(scenario())
+
+
+class TestCadenceBench:
+    """The ``bench`` maintenance probe (benchmarks/maintenance_cadence.py)
+    against its perf_record.py pins: the metric names ``bench`` wires in
+    must exist, and the O(delta) claim must actually show up as a >1
+    incremental-over-full speedup even at a toy shape."""
+
+    def test_quick_probe_keys_and_speedup(self):
+        from p1_tpu_torch.benchmarks.maintenance_cadence import bench_quick
+
+        out = bench_quick(accounts=2_000, delta=16, blocks=48)
+        for key in (
+            "snapshot_incr_builds_per_sec",
+            "snapshot_full_builds_per_sec",
+            "snapshot_cadence_speedup",
+            "snapshot_chunks_reused",
+            "rebase_ms",
+            "rebase_dropped_blocks",
+            "rebase_freed_bytes",
+        ):
+            assert key in out, key
+        assert out["snapshot_cadence_speedup"] > 1.0
+        assert out["rebase_dropped_blocks"] > 0
+        assert out["rebase_ms"] < 1_000.0
+
+    def test_pins_exist_and_are_sane(self):
+        # The guard constants bench divides by: nonzero, right side of
+        # the degraded comparison (fraction < 1 for rates, factor > 1 for
+        # latencies).
+        from p1_tpu_torch.hashx import perf_record as pr
+
+        assert pr.RECORDED_SNAPSHOT_CADENCE_BPS > 0
+        assert pr.RECORDED_REBASE_MS > 0
+        assert 0 < pr.SNAPSHOT_CADENCE_DEGRADED_FRACTION < 1
+        assert pr.REBASE_DEGRADED_FACTOR > 1
 
 
 class TestCrossPackage:

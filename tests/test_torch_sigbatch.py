@@ -444,8 +444,9 @@ class TestStats:
             keys._fallback_warned = False
         hits = [r for r in caplog.records if "pure-Python Ed25519" in r.getMessage()]
         assert len(hits) == 1
-        assert "FORCED" in hits[0].getMessage() and "device" in hits[0].getMessage()
-        assert not re.search(r"\d\s*(ms|µs|us)\b", hits[0].getMessage())  # names rungs, no figure
+        msg = hits[0].getMessage()
+        assert "FORCED" in msg and "device" in msg and "native" in msg
+        assert "ms" in msg and re.search(r"\d\s*ms", msg)  # names the measured slowdown
 
 
 class TestFirstInvalid:
